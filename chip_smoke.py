@@ -7,18 +7,30 @@ Phases (each prints one or more lines; any failure exits non-zero):
   1. device: the card, its power limit, and the nvcc build of every kernel
      with ptxas's register / shared-memory / spill lines;
   2. kernels against their plain PyTorch versions at the full `ours` width
-     (configs/ours.yml: d=512, 8 heads, FFN 1024, 6+6 layers, L=216, T=37)
-     and batch N=20, in fp32 and bf16; K4's bf16 gates are also shown to
-     reject known faults (a bias dropped or misread, a LayerNorm affine
-     ignored);
-  3. the main path: ``predict_faces`` on 20 seeded random wireframes
-     through a seeded random-init SurfaceFormerParallel (biases and
-     LayerNorms jittered off their init values) in bf16 with early_stop
+     (configs/ours.yml: d=512, 8 heads, FFN 1024, 6+6 layers, L=216, T=37),
+     in fp32 and bf16: the serving kernels at batch N=20, K4's bf16 gates
+     also against known faults (a bias dropped or misread, a LayerNorm
+     affine ignored); the flash forward with in-kernel dropout and the
+     flash backward at the three training shapes (encoder, causal decoder
+     self-attention, anchor-folded cross-attention), with the keep mask
+     held bit for bit, repeatability, and the backward's bf16 gates against
+     planted faults;
+  3. the main paths. Serving: ``predict_faces`` on 20 seeded random
+     wireframes through a seeded random-init SurfaceFormerParallel (biases
+     and LayerNorms jittered off their init values) in bf16 with early_stop
      off, via the fused and causal_cache engines (N=20) and the reference
      engine (N=4); faces/s, wall time, peak memory and launch counts per
      engine, and one more decode under torch.profiler (device time by
-     kernel, idle share); then fused vs causal_cache grid agreement;
-  4. per-kernel timing at the main path's shapes: kernel, plain version,
+     kernel, idle share); then fused vs causal_cache grid agreement.
+     Training: ``train_step`` on a seeded batch of N=32 wireframes with
+     seeded face loops over their edges (well-formed labels, not true
+     faces): every gradient through the kernels against the plain versions
+     in fp32 at N=2; Adam steps in bf16 without and with dropout 0.2, the
+     NaN-loss skip, scheduled sampling and remat, with the launch counts
+     each configuration implies; samples/s, the step split into forward,
+     backward and optimizer, peak memory, and one step under
+     torch.profiler;
+  4. per-kernel timing at the main paths' shapes: kernel, plain version,
      one-call library yardstick, and the card's lower bound;
   5. one JSON summary of the kernels, the card line, and the result line.
 
@@ -182,6 +194,221 @@ def check_flash(rng, dev, n, sq, sk, h, hd, label, prefix=False, causal=False):
           f"max err fp32 {errs['torch.float32']:.3g} (<=1e-4), bf16 "
           f"{errs['torch.bfloat16']:.3g} (<=2e-2)", flush=True)
     return errs["torch.bfloat16"]
+
+
+# The three attention calls of a training step at the `ours` width, N = 32:
+# (label, sequences, Sq, Sk, causal, sequences the plain side is run at).
+# The plain versions hold (n, 8, Sq, Sk) fp32 tensors (and the Philox
+# counters in int64), so the cross-attention comparison runs at a smaller n.
+TRAIN_SHAPES = (("encoder", 32, 220, 220, False, 32),
+                ("decoder-self", 32 * 216, 40, 40, True, 32 * 216),
+                ("cross", 32, 216 * 40, 220, False, 4))
+TRAIN_RATE = 0.2
+
+
+def train_attention_inputs(rng, dev, dtype, label, n, sq, sk, h, hd):
+    """q, k, v, do and the key-padding bias of one training call. The
+    decoder's key padding is that of face rows: 4..9 live tokens, then PAD."""
+    import torch
+    from faceformer_tpu_torch.ops.flash import padding_mask_bias
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, do = randn(n, sq, h, hd), randn(n, sq, h, hd)
+    k, v = randn(n, sk, h, hd), randn(n, sk, h, hd)
+    if label == "decoder-self":
+        live = torch.randint(4, 10, (n, 1), generator=gen, device=dev)
+        mask = torch.arange(sk, device=dev)[None, :] >= live
+    else:
+        mask = padding(rng, n, sk, dev)
+    return q, k, v, do, padding_mask_bias(mask.contiguous())
+
+
+def rel_errors(got, want):
+    """(largest error over the reference's largest magnitude, mean error
+    over the reference's mean magnitude, largest absolute error)."""
+    d = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    return float(d.max() / ref.max()), float(d.mean() / ref.mean()), float(d.max())
+
+
+def kernel_keep_mask(q, k, v, bias, causal, seed):
+    """The keep mask the forward kernel applied, read through its output:
+    with v the one-hot of the key index inside a 64-key window, out[i, d]
+    is p_used[i, window + d], 0 exactly where the kernel dropped it.
+    Returns (kept (n, h, sq, sk) bool, live entries: not padded, not above
+    the diagonal)."""
+    import torch
+    from faceformer_tpu_torch.ops.flash import flash_attention_fwd
+
+    n, sq, h, hd = q.shape
+    sk = k.shape[1]
+    kept = torch.zeros((n, h, sq, sk), dtype=torch.bool, device=q.device)
+    for w0 in range(0, sk, hd):
+        width = min(hd, sk - w0)
+        v1 = torch.zeros_like(v)
+        idx = torch.arange(width, device=q.device)
+        v1[:, w0 + idx, :, idx] = 1.0
+        out = flash_attention_fwd(q, k, v1, bias, causal=causal, dropout_rate=TRAIN_RATE,
+                                  seed=seed)[0]
+        kept[..., w0:w0 + width] = (out[..., :width] != 0).permute(0, 2, 1, 3)
+    live = (bias == 0)[:, None, None, :].expand(n, h, sq, sk).clone()
+    if causal:
+        live &= ~torch.ones((sq, sk), dtype=torch.bool, device=q.device).triu(1)
+    return kept, live
+
+
+# K3's bf16 gates: the largest and the mean error of dq, dk and dv, each
+# relative to the plain version's largest and mean magnitude. The bf16
+# kernel rounds ds and p_used to bf16 for its last three products where the
+# plain version keeps fp32. Each limit lies between this script's readings
+# on an H100 (PERF.md) of the sound kernel at the three training shapes and
+# of the planted faults:
+#                     sound    weakest fault (lse shifted by 0.1)
+K3_BF16_MAX = 0.03   # 0.00758  0.0928
+K3_BF16_MEAN = 0.03  # 0.00168  0.0952
+
+
+def k3_faults(causal):
+    """Kernel faults the bf16 gates must reject, each made by editing what
+    the kernel is given while the plain version keeps the truth. Each entry:
+    (label, dropout rate, edit(args) -> (args, fix(dq, dk, dv)))."""
+    import torch
+
+    def lse_shifted(a):
+        return {**a, "lse": a["lse"] + 0.1}, None
+
+    def scale_doubled(a):
+        # a kernel whose scale is twice the true one computes exactly what the
+        # sound kernel computes from 2q, except a dq twice as large
+        return {**a, "q": a["q"] * 2}, lambda dq, dk, dv: (dq * 2, dk, dv)
+
+    def seed_plus_one(a):
+        return {**a, "seed": a["seed"] + 1}, None
+
+    def wrong_head(a):
+        return {**a, "dout": a["dout"].roll(1, dims=2).contiguous()}, None
+
+    def causal_off_by_one(a):
+        # one dummy query row in front (q = 0, do = 0: it adds nothing to dk
+        # and dv) shifts every real row down by one, so the kernel masks
+        # keys j > i + 1 where it should mask j > i
+        def front(x, value=0.0):
+            pad = torch.full_like(x[:, :1], value)
+            return torch.cat([pad, x], dim=1).contiguous()
+
+        edited = {**a, "q": front(a["q"]), "dout": front(a["dout"]), "lse": front(a["lse"])}
+        return edited, lambda dq, dk, dv: (dq[:, 1:], dk, dv)
+
+    faults = [("lse shifted by 0.1", TRAIN_RATE, lse_shifted),
+              ("scale off by 2", TRAIN_RATE, scale_doubled),
+              ("backward given seed+1", TRAIN_RATE, seed_plus_one),
+              ("do of the wrong head", TRAIN_RATE, wrong_head)]
+    if causal:
+        faults.append(("causal off by one", 0.0, causal_off_by_one))
+    return faults
+
+
+def check_flash_train(rng, dev, label, n_full, sq, sk, causal, n, h, hd):
+    """K2 with dropout and K3 against their plain versions at one training
+    shape, fp32 and bf16, dropout 0 and TRAIN_RATE. Returns the largest
+    absolute bf16 errors (forward, backward)."""
+    import torch
+    from faceformer_tpu_torch.ops.flash import (flash_attention_bwd, flash_attention_fwd,
+                                                keep_mask_on_card, philox_keep_mask)
+
+    seed = int(rng.integers(2 ** 62))
+    shape = f"{label} q({n},{sq},{h},{hd}) k({n},{sk}) causal={causal} (the step's N gives "\
+            f"{n_full} sequences)"
+    card = keep_mask_on_card(seed, n, h, sq, sk, TRAIN_RATE, dev)
+    plain_mask = philox_keep_mask(seed, n, h, sq, sk, TRAIN_RATE, device=dev)
+    if not torch.equal(card, plain_mask):
+        fail(f"K2/K3 {label}: the card's keep mask differs from the plain Philox mask in "
+             f"{int((card != plain_mask).sum())} bits")
+    other = keep_mask_on_card(seed + 1, n, h, sq, sk, TRAIN_RATE, dev)
+    if torch.equal(card, other):
+        fail(f"K2/K3 {label}: another seed gave the same keep mask")
+    print(f"[2] keep mask {shape}: card == plain bit for bit, keep share "
+          f"{float(card.float().mean()):.5f}, another seed differs in "
+          f"{float((card != other).float().mean()):.4f} of bits", flush=True)
+    del card, other
+
+    worst_fwd = worst_bwd = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        q, k, v, do, bias = train_attention_inputs(rng, dev, dtype, label, n, sq, sk, h, hd)
+        for rate in (0.0, TRAIN_RATE):
+            kw = dict(causal=causal, dropout_rate=rate, seed=seed)
+            out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, **kw)
+            out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
+            e_out = float((out.float() - out_p.float()).abs().max())
+            e_lse = float((lse - lse_p).abs().max())
+            tol = 2e-2 if bf16 else 1e-4
+            print(f"[2] K2 flash_fwd {shape} {dtype} dropout {rate}: out err {e_out:.3g}, "
+                  f"lse err {e_lse:.3g} (<= {tol})", flush=True)
+            if not (e_out <= tol and e_lse <= tol):
+                fail(f"K2 {label} {dtype} dropout {rate}: out {e_out:.3g}, lse {e_lse:.3g}")
+            if rate:
+                kept, live = kernel_keep_mask(q, k, v, bias, causal, seed)
+                wrong = int(((kept != plain_mask) & live).sum())
+                print(f"[2] K2 flash_fwd {shape} {dtype}: the mask the kernel applied, read "
+                      f"through a one-hot v, differs from the plain mask in {wrong} of "
+                      f"{int(live.sum())} live entries", flush=True)
+                if wrong:
+                    fail(f"K2 {label} {dtype}: the kernel's keep mask is not the plain one")
+                del kept, live
+            args = dict(q=q, k=k, v=v, bias=bias, lse=lse_p, dout=do, **kw)
+            got = launched("flash_bwd", flash_attention_bwd, **args)
+            want = flash_attention_bwd(**args, impl="plain")
+            again = flash_attention_bwd(**args)
+            torch.cuda.synchronize()
+            errs = [rel_errors(a, b) for a, b in zip(got, want)]
+            line = ", ".join(f"{name} max {e[0]:.3g} mean {e[1]:.3g}"
+                             for name, e in zip(("dq", "dk", "dv"), errs))
+            print(f"[2] K3 flash_bwd {shape} {dtype} dropout {rate}: relative err {line}; "
+                  f"two launches bitwise equal: "
+                  f"{all(torch.equal(a, b) for a, b in zip(got, again))}", flush=True)
+            if not all(torch.isfinite(g.float()).all() for g in got):
+                fail(f"K3 {label} {dtype} dropout {rate}: non-finite gradients")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"K3 {label} {dtype}: two launches with one seed differ")
+            if bf16:
+                if max(e[0] for e in errs) > K3_BF16_MAX or max(e[1] for e in errs) > K3_BF16_MEAN:
+                    fail(f"K3 {label} bf16 dropout {rate}: beyond the gates "
+                         f"(max {K3_BF16_MAX}, mean {K3_BF16_MEAN})")
+                worst_fwd = max(worst_fwd, e_out)
+                worst_bwd = max(worst_bwd, max(e[2] for e in errs))
+            elif max(e[0] for e in errs) > 1e-4:
+                fail(f"K3 {label} fp32 dropout {rate}: relative err above 1e-4")
+            if rate:
+                moved = flash_attention_bwd(**{**args, "seed": seed + 1})
+                if torch.equal(moved[2], got[2]):
+                    fail(f"K3 {label} {dtype}: another seed gave the same dv")
+            del got, want, again
+        if bf16:
+            for name, rate, edit in k3_faults(causal):
+                args = dict(q=q, k=k, v=v, bias=bias, dout=do, causal=causal,
+                            dropout_rate=rate, seed=seed)
+                args["lse"] = flash_attention_fwd(q, k, v, bias, causal=causal, impl="plain",
+                                                  dropout_rate=rate, seed=seed)[1]
+                want = flash_attention_bwd(**args, impl="plain")
+                edited, fix = edit(args)
+                got = flash_attention_bwd(**edited)
+                if fix is not None:
+                    got = fix(*got)
+                errs = [rel_errors(a, b) for a, b in zip(got, want)]
+                e_max, e_mean = max(e[0] for e in errs), max(e[1] for e in errs)
+                caught = e_max > K3_BF16_MAX or e_mean > K3_BF16_MEAN
+                print(f"[2] K3 bf16 fault '{name}' {label}: relative err max {e_max:.3g} mean "
+                      f"{e_mean:.3g}; {'rejected' if caught else 'PASSES THE GATES'}",
+                      flush=True)
+                if not caught:
+                    fail(f"K3 bf16 gates pass a kernel with '{name}' at {label}")
+                del got, want
+    return worst_fwd, worst_bwd
 
 
 def decode_inputs(model, cfg, rng, dev, dtype, n, step):
@@ -411,7 +638,8 @@ def run_engine(model, cfg, samples, mode, dev):
           f"(decode {decode_s:.4f} s) predict_wall_s={wall:.4f} "
           f"max_memory_allocated={peak} launches={json.dumps(launches)} "
           f"faces_kept={sum(len(f) for f in faces)}", flush=True)
-    profile_decode(model, batch, mode)
+    profile_call(f"engine={mode}", lambda: model.forward_eval(
+        batch, precision="bf16", mode=mode, early_stop=False))
     return launches, grid, batch
 
 
@@ -425,18 +653,18 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_decode(model, batch, mode, top: int = 8):
-    """One more decode of the same batch under torch.profiler: the device
-    time summed over kernels, the device's idle share over the wall time
-    (1 - union of kernel intervals / wall), and the kernels grouped by
-    name, largest first. The profiler slows the host, so the idle share is
-    an upper bound."""
+def profile_call(label, fn, top: int = 8):
+    """One more call of ``fn`` (a decode, a training step) under
+    torch.profiler: the device time summed over kernels, the device's idle
+    share over the wall time (1 - union of kernel intervals / wall), and
+    the kernels grouped by name, largest first. The profiler slows the
+    host, so the idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.forward_eval(batch, precision="bf16", mode=mode, early_stop=False)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, intervals = {}, []
@@ -445,12 +673,20 @@ def profile_decode(model, batch, mode, top: int = 8):
             intervals.append((ev.time_range.start, ev.time_range.end))
             kernels.setdefault(ev.name, []).append(ev.time_range.end - ev.time_range.start)
     if not intervals:
-        fail(f"{mode}: the profiler recorded no device activity")
+        fail(f"{label}: the profiler recorded no device activity")
     device_us = sum(sum(d) for d in kernels.values())
     busy = busy_us(intervals)
-    print(f"[3] engine={mode} profile: wall_ms={wall_us / 1e3:.3f} "
+    print(f"[3] {label} profile: wall_ms={wall_us / 1e3:.3f} "
           f"device_ms={device_us / 1e3:.3f} busy_ms={busy / 1e3:.3f} "
           f"idle_share={1 - busy / wall_us:.4f} device_ops={len(intervals)}", flush=True)
+    groups = {"the port's kernels": 0.0, "library GEMMs": 0.0, "other torch kernels": 0.0}
+    for name, d in kernels.items():
+        key = ("the port's kernels" if "ff::" in name else "library GEMMs"
+               if any(w in name.lower() for w in ("nvjet", "gemm", "cutlass", "cublas", "gemv"))
+               else "other torch kernels")
+        groups[key] += sum(d)
+    print(f"[3] {label} profile, device ms by family: "
+          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items()), flush=True)
     for name, d in sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:top]:
         print(f"[3]   {sum(d) / 1e3:9.3f} ms {100 * sum(d) / device_us:5.1f} % {len(d):5d}x "
               f"{name[:100]}", flush=True)
@@ -484,6 +720,217 @@ def first_divergence_gaps(model, cfg, batch, g_a, g_b, limit=64):
             top2 = logits.topk(2).values
             gaps.append(float((top2[0] - top2[1]) / top2[0].abs()))
     return len(rows), gaps
+
+
+# ---------------------------------------------------------------------------
+# phase 3, training
+# ---------------------------------------------------------------------------
+
+
+def random_face_loops(rng: np.random.Generator, num_edges: int):
+    """Seeded face lists over a wireframe's edges: loops of 3-8 edge indices
+    with a surface type, every edge in at most one loop. Well-formed labels
+    for the packer; they are not the true faces of any solid."""
+    order = rng.permutation(num_edges).tolist()
+    faces = []
+    while len(order) >= 3:
+        size = min(int(rng.integers(3, 9)), len(order))
+        faces.append((int(rng.integers(0, 4)), [order[:size]]))
+        order = order[size:]
+    return faces
+
+
+def training_batch(rng, samples, mc, dev):
+    import torch
+    from faceformer_tpu_torch.data.batching import collate
+    from faceformer_tpu_torch.data.packing import pack_input_edges, pack_label_parallel
+
+    packed = []
+    for sample in samples:
+        item = pack_input_edges(sample["edges"], mc)
+        item.update(pack_label_parallel(random_face_loops(rng, len(sample["edges"])), mc))
+        packed.append(item)
+    return {k: torch.as_tensor(v).to(dev) for k, v in collate(packed).items()}
+
+
+def expect_launches(what, fwd, bwd):
+    from faceformer_tpu_torch import ops
+
+    got = (ops.LAUNCHES["flash_fwd"], ops.LAUNCHES["flash_bwd"])
+    print(f"[3] train {what}: launches flash_fwd {got[0]} (expected {fwd}), flash_bwd "
+          f"{got[1]} (expected {bwd})", flush=True)
+    if got != (fwd, bwd) or 0 in got:
+        fail(f"train {what}: flash launches {got}, the configuration implies {(fwd, bwd)}")
+
+
+def timed_step(model, optimizer, batch, generator, cfg):
+    """The calls of ``train_step`` with CUDA events between them: ms of
+    (forward + loss, backward, the finite check and Adam)."""
+    import torch
+    from faceformer_tpu_torch.train.loss import pointer_cross_entropy
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    out = model.forward_train(batch, generator=generator, precision=cfg.trainer.precision)
+    loss, _ = pointer_cross_entropy(out, cfg.model.token)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    if bool(torch.isfinite(loss)):
+        optimizer.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    return tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+
+
+def run_training(cfg, rng, seed, samples, dev):
+    """The training path at the `ours` width. Returns the flash launch
+    counts of the ten dropout-free bf16 steps (the main-path run)."""
+    import torch
+    from faceformer_tpu_torch import ops
+    from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+    from faceformer_tpu_torch.params import jitter_affine_
+    from faceformer_tpu_torch.train.loss import pointer_cross_entropy
+    from faceformer_tpu_torch.train.step import make_optimizer, train_step
+
+    mc = cfg.model
+    enc, dec = mc.num_encoder_layers, mc.num_decoder_layers
+    per_step = enc + 2 * dec  # flash calls of one forward: encoder, self, cross
+    gen = torch.Generator().manual_seed(seed)
+    model = SurfaceFormerParallel(mc, generator=gen, device=dev)
+    jitter_affine_(model, gen)
+    batch = training_batch(rng, samples, mc, dev)
+    rows = int((~batch["label_mask"][:, :, 1:]).sum())
+    print(f"[3] train batch N={len(samples)}: seeded face loops over the wireframes' edges "
+          f"(well-formed labels, not true faces), {rows} non-PAD target tokens, dropout "
+          f"{mc.dropout}", flush=True)
+
+    # fp32, N=2, no dropout: every gradient, kernels against the plain versions
+    small = {k: v[:2] for k, v in batch.items()}
+    grads = {}
+    for impl in ("auto", "plain"):
+        model.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        out = model.forward_train(small, precision="fp32", impl=impl)
+        loss, _ = pointer_cross_entropy(out, mc.token)
+        loss.backward()
+        torch.cuda.synchronize()
+        if impl == "auto":
+            expect_launches("fp32 N=2 gradients through the kernels", per_step, per_step)
+        elif ops.LAUNCHES["flash_fwd"] or ops.LAUNCHES["flash_bwd"]:
+            fail("impl='plain' launched a flash kernel")
+        grads[impl] = {name: p.grad.clone() for name, p in model.named_parameters()}
+    # A key bias shifts every score of a row alike, and the softmax ignores
+    # that: its gradient is 0 but for rounding, in both versions, so it is
+    # held to an absolute limit; every other leaf to its own largest magnitude.
+    errs, noise = {}, {}
+    for name, g in grads["auto"].items():
+        d = float((g - grads["plain"][name]).abs().max())
+        if name.endswith("attn.k.bias"):
+            noise[name] = max(d, float(g.abs().max()), float(grads["plain"][name].abs().max()))
+        else:
+            errs[name] = d / float(grads["plain"][name].abs().max())
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[3] train fp32 N=2 dropout 0: loss {float(loss.detach()):.6f}; {len(errs)} gradient "
+          f"leaves, kernels vs plain, largest relative error per leaf: "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in worst)} (gate 1e-3); {len(noise)} key-bias "
+          f"leaves (zero gradient but for rounding): largest magnitude or difference "
+          f"{max(noise.values()):.3g} (gate 1e-5)", flush=True)
+    if (max(errs.values()) > 1e-3 or max(noise.values()) > 1e-5
+            or not all(torch.isfinite(g).all() for g in grads["auto"].values())):
+        fail("train fp32: a gradient through the kernels differs from the plain versions")
+    model.zero_grad(set_to_none=True)
+    del grads
+
+    # bf16, N=32: Adam steps on the one batch
+    tcfg = dataclasses.replace(cfg, trainer=dataclasses.replace(
+        cfg.trainer, precision="bf16", lr=1e-4, scheduled_sampling=0.0))
+    optimizer = make_optimizer(model, tcfg.trainer)
+    ops.reset_launches()
+    losses = [float(train_step(model, optimizer, batch, None, tcfg)[0]) for _ in range(10)]
+    torch.cuda.synchronize()
+    main_launches = dict(ops.LAUNCHES)
+    expect_launches("10 bf16 steps, dropout 0", 10 * per_step, 10 * per_step)
+    print(f"[3] train bf16 N={len(samples)} dropout 0 lr 1e-4, 10 steps on one batch: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("train bf16: a loss is not finite, or the last is not below the first")
+
+    dgen = torch.Generator().manual_seed(seed + 1)
+    ops.reset_launches()
+    losses = [float(train_step(model, optimizer, batch, dgen, tcfg)[0]) for _ in range(10)]
+    expect_launches(f"10 bf16 steps, dropout {mc.dropout}", 10 * per_step, 10 * per_step)
+    print(f"[3] train bf16 dropout {mc.dropout}, 10 more steps: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail("train bf16 with dropout: a loss is not finite")
+
+    # a NaN planted in the input: the step is skipped
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state = {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in slot.items()}
+             for i, slot in optimizer.state_dict()["state"].items()}
+    bad = dict(batch)
+    bad["input"] = batch["input"].clone()
+    bad["input"][0, 0, 0, 0] = float("nan")
+    loss, _ = train_step(model, optimizer, bad, dgen, tcfg)
+    after = optimizer.state_dict()["state"]
+    same = (all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+            and after.keys() == state.keys()
+            and all(torch.equal(after[i][k], v) if torch.is_tensor(v) else after[i][k] == v
+                    for i, slot in state.items() for k, v in slot.items()))
+    print(f"[3] train NaN planted in the input: loss {float(loss)}, parameters and Adam state "
+          f"(moments, step counts) bitwise unchanged: {same}", flush=True)
+    if bool(torch.isfinite(loss)) or not same:
+        fail("train: the NaN step did not leave parameters and Adam state unchanged")
+
+    # scheduled sampling: a dropout-free first pass re-runs the decoder only
+    ss = dataclasses.replace(tcfg, trainer=dataclasses.replace(tcfg.trainer,
+                                                               scheduled_sampling=0.5))
+    ops.reset_launches()
+    loss, _ = train_step(model, optimizer, batch, dgen, ss)
+    expect_launches("1 step, scheduled sampling 0.5", per_step + 2 * dec, per_step)
+    if not bool(torch.isfinite(loss)):
+        fail("train: non-finite loss with scheduled sampling")
+
+    # timing, remat off then on: steady steps with dropout on
+    def measure(label):
+        for _ in range(2):
+            train_step(model, optimizer, batch, dgen, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(model, optimizer, batch, dgen, tcfg)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+        peak = torch.cuda.max_memory_allocated()
+        split = np.mean([timed_step(model, optimizer, batch, dgen, tcfg) for _ in range(3)],
+                        axis=0)
+        print(f"[3] train {label} N={len(samples)} bf16 dropout {mc.dropout}: samples/s="
+              f"{len(samples) / step_s:.2f} step_ms={step_s * 1e3:.2f} forward_ms={split[0]:.2f} "
+              f"backward_ms={split[1]:.2f} optimizer_ms={split[2]:.2f} "
+              f"max_memory_allocated={peak}", flush=True)
+
+    measure("remat off")
+    profile_call("train step (remat off)",
+                 lambda: train_step(model, optimizer, batch, dgen, tcfg), top=12)
+    model.cfg = dataclasses.replace(mc, remat=True)
+    ops.reset_launches()
+    loss, _ = train_step(model, optimizer, batch, dgen, tcfg)
+    expect_launches("1 step, remat full", 2 * per_step, per_step)
+    if not bool(torch.isfinite(loss)):
+        fail("train: non-finite loss with remat")
+    measure("remat full")
+    model.cfg = dataclasses.replace(mc, remat=True, remat_policy="attn")
+    try:
+        train_step(model, optimizer, batch, dgen, tcfg)
+    except NotImplementedError as e:
+        print(f"[3] train remat_policy 'attn' refused: {e}", flush=True)
+    else:
+        fail("a named remat policy ran as if it were ported")
+    return main_launches
 
 
 # ---------------------------------------------------------------------------
@@ -537,6 +984,15 @@ def main() -> int:
         check_flash(rng, dev, n * f, 37, 37, h, hd, "ref-decoder-self", prefix=True),
         check_flash(rng, dev, 4, 40, 40, h, hd, "causal", causal=True))
     err["decode_step"] = check_decode_step(model, mc, rng, dev, n)
+    err["flash_bwd"] = 0.0
+    for label, n_full, sq, sk, causal, n_plain in TRAIN_SHAPES:
+        e_fwd, e_bwd = check_flash_train(rng, dev, label, n_full, sq, sk, causal, n_plain, h, hd)
+        err["flash_fwd"] = max(err["flash_fwd"], e_fwd)
+        err["flash_bwd"] = max(err["flash_bwd"], e_bwd)
+    print(f"[2] K3 gates: fp32 dq, dk, dv within 1e-4 of the plain version relative to each "
+          f"tensor's largest magnitude; bf16 largest error <= {K3_BF16_MAX} of the largest "
+          f"magnitude and mean error <= {K3_BF16_MEAN} of the mean magnitude; keep masks "
+          f"bit for bit; two launches bitwise equal", flush=True)
 
     # phase 3
     samples = random_wireframes(rng, n)
@@ -567,12 +1023,19 @@ def main() -> int:
           f"{max(gaps) if gaps else 0.0:.3g} (<1e-4)", flush=True)
     if agree < 0.999 or any(g >= 1e-4 for g in gaps):
         fail("fused and causal_cache disagree beyond near-ties")
+    del grids, g32
+
+    train_n = TRAIN_SHAPES[0][1]
+    launches = run_training(cfg, rng, args.seed, random_wireframes(rng, train_n), dev)
+    for k, v in launches.items():
+        total[k] += v
 
     # phase 4: timing at the main path's shapes, bf16
     bf = torch.bfloat16
     timings = []
     from faceformer_tpu_torch.ops.decode_step import decode_step
-    from faceformer_tpu_torch.ops.flash import flash_attention_fwd, padding_mask_bias
+    from faceformer_tpu_torch.ops.flash import (flash_attention_bwd, flash_attention_fwd,
+                                                padding_mask_bias)
     from faceformer_tpu_torch.ops.pointer import pointer_argmax
 
     rows = torch.as_tensor(rng.standard_normal((n, f, e)), dtype=bf, device=dev)
@@ -619,6 +1082,45 @@ def main() -> int:
                     time_ms(lambda: decode_step(step, **inp, num_head=h), iters=5),
                     time_ms(lambda: decode_step(step, **inp, num_head=h, impl="plain"),
                             iters=5), None, b, fl))
+    del inp
+    # K3 (and K2 with dropout) at the three training shapes, bf16, dropout on
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k3_rows = {}
+    for label, n3, sq, sk, causal, _ in TRAIN_SHAPES:
+        q, k, v, do, bias = train_attention_inputs(rng, dev, bf, label, n3, sq, sk, h, hd)
+        kw = dict(causal=causal, dropout_rate=TRAIN_RATE, seed=1234)
+        lse = flash_attention_fwd(q, k, v, bias, **kw)[1]
+        fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, **kw), iters=5)
+        fwd0_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, causal=causal), iters=5)
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, **kw), iters=5)
+        ms0 = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, causal=causal),
+                      iters=5)
+        plain = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, impl="plain", **kw),
+                        iters=2, warmup=1)
+        # the library's backward alone: one autograd.grad through its attention
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        mask4 = bias[:, None, None, :]
+        if causal:
+            above = torch.ones((sq, sk), dtype=torch.bool, device=dev).triu(1)
+            mask4 = mask4.expand(n3, 1, sq, sk).masked_fill(above, neg)
+        mask4 = mask4.to(bf)
+        out = sdpa(qt, kt, vt, attn_mask=mask4, dropout_p=TRAIN_RATE)
+        dot = do.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                      iters=5)
+        moved = nbytes(q, k, v, do, lse, bias) + nbytes(q, k, v)
+        b, by = bound_ms(moved, 5 * 2.0 * n3 * h * sq * sk * hd, bf)
+        k3_rows[label] = dict(ms=ms, ms_no_dropout=ms0, plain_ms=plain, library_ms=lib,
+                              bound_ms=b, bound_by=by, fwd_ms=fwd_ms, fwd_ms_no_dropout=fwd0_ms)
+        print(f"[4] flash_bwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
+              f"{TRAIN_RATE}: kernel {ms:.4f} ms (dropout 0: {ms0:.4f}), plain {plain:.4f} ms, "
+              f"library backward {lib:.4f} ms, bound {b:.5f} ms ({by}); forward kernel "
+              f"{fwd_ms:.4f} ms (dropout 0: {fwd0_ms:.4f})", flush=True)
+        del q, k, v, do, bias, lse, qt, kt, vt, out, dot, mask4
+    row = k3_rows["cross"]
+    timings.insert(2, ("flash_bwd", "faceformer_tpu_torch/csrc/flash_bwd.cu",
+                       "faceformer_tpu/ops/flash.py:293", row["ms"], row["plain_ms"],
+                       row["library_ms"], row["bound_ms"], row["bound_by"]))
     for name, _, _, ms, plain, lib, bnd, by in timings:
         print(f"[4] {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bnd:.5f} ms ({by})",
@@ -630,6 +1132,8 @@ def main() -> int:
          "launches": total[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
          "bound_ms": bnd, "bound_by": by, "library_ms": lib}
         for name, src, rep, ms, plain, lib, bnd, by in timings]}
+    # K3's entry is the cross-attention call; the other two shapes ride along
+    summary["kernels"][2]["shapes"] = k3_rows
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

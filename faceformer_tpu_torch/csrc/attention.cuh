@@ -29,16 +29,20 @@ template <typename TK> inline size_t attention_smem_bytes(int Sk, int hd) {
 // e = exp(s - max), p = e / sum(e); p is rounded to TQ before the product
 // with v (flash.py rounds p to v's dtype; with TQ = float nothing rounds, as
 // in decode_step.py's fp32 cross-attention). lse = max + log(sum(e)).
+// DROP (training, flash.py:131-133): p becomes keep ? p * 1/(1 - rate) : 0
+// after the softmax and before that rounding, with the keep mask of
+// common.cuh; lse stays that of the scores. Without DROP the code is the
+// dropout-free kernel unchanged.
 //
 // Grid (N * H, ceil(Sq / ATT_ROWS)), ATT_WARPS warps. K and V of the block's
 // (sequence, head) sit in shared memory; one warp walks one query row at a
 // time: lanes split the keys for the scores (rows padded to dodge bank
 // conflicts) and split hd for the output.
-template <typename TQ, typename TK, bool PRESCALE>
+template <typename TQ, typename TK, bool PRESCALE, bool DROP>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_kernel(const TQ* __restrict__ q, const TK* __restrict__ k, const TK* __restrict__ v,
                  const float* __restrict__ bias, TQ* __restrict__ out, float* __restrict__ lse,
-                 int Sq, int Sk, int H, int hd, float scale, int causal) {
+                 int Sq, int Sk, int H, int hd, float scale, int causal, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int kstride = hd + kv_pad<TK>();
   size_t ks_bytes = ((size_t)Sk * kstride * sizeof(TK) + 15) / 16 * 16;
@@ -91,7 +95,11 @@ attention_kernel(const TQ* __restrict__ q, const TK* __restrict__ k, const TK* _
       sum += e;
     }
     const float denom = warp_sum(sum);
-    for (int j = lane; j < Sk; j += 32) pw[j] = round_to<TQ>(pw[j] / denom);
+    for (int j = lane; j < Sk; j += 32) {
+      float p = pw[j] / denom;
+      if constexpr (DROP) p = dropout_keep(drop, n, h, i, j) ? p * drop.scale : 0.f;
+      pw[j] = round_to<TQ>(p);
+    }
     if (lse != nullptr && lane == 0) lse[((size_t)n * Sq + i) * H + h] = m + logf(denom);
     __syncwarp();
 
@@ -130,12 +138,12 @@ template <int KT> constexpr size_t attention_tc_smem_bytes() {
   return (size_t)KT * 16 * (TC_HD + 8) * 2 + (size_t)TC_HD * (KT * 16 + 8) * 2 + KT * 16 * 4;
 }
 
-template <typename TQ, int KT, bool PRESCALE>
+template <typename TQ, int KT, bool PRESCALE, bool DROP>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 attention_tc_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                     TQ* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
-                    float scale, int causal) {
+                    float scale, int causal, Dropout drop) {
   using bf16 = __nv_bfloat16;
   constexpr bool F32 = std::is_same<TQ, float>::value;
   constexpr int TERMS = F32 ? 3 : 1;
@@ -238,6 +246,16 @@ attention_tc_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ 
       p[i] = s[2 * kt][i] / sum[i / 2];
       p[4 + i] = s[2 * kt + 1][i] / sum[i / 2];
     }
+    if constexpr (DROP) {
+      // p[4t + 2r], p[4t + 2r + 1]: key tile 2kt + t, row r, keys j, j + 1
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        bool keep[4];
+        dropout_keep_rows(drop, n, h, ra, rb, (2 * kt + t) * 8 + tig * 2, tig, keep);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[4 * t + i] = keep[i] ? p[4 * t + i] * drop.scale : 0.f;
+      }
+    }
     uint32_t a[4 * TERMS];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -276,33 +294,36 @@ attention_tc_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ 
   }
 }
 
-template <typename TQ, int KT, bool PRESCALE>
+template <typename TQ, int KT, bool PRESCALE, bool DROP>
 inline cudaError_t launch_attention_tc(const TQ* q, const __nv_bfloat16* k,
                                        const __nv_bfloat16* v, const float* bias, TQ* out,
                                        float* lse, int N, int Sq, int Sk, int H, float scale,
-                                       int causal, cudaStream_t stream) {
+                                       int causal, Dropout drop, cudaStream_t stream) {
   constexpr size_t smem = attention_tc_smem_bytes<KT>();
-  auto kernel = attention_tc_kernel<TQ, KT, PRESCALE>;
+  auto kernel = attention_tc_kernel<TQ, KT, PRESCALE, DROP>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(N * H, (Sq + TC_ROWS - 1) / TC_ROWS);
   kernel<<<grid, TC_WARPS * 32, smem, stream>>>(q, k, v, bias, out, lse, Sq, Sk, H, scale,
-                                                causal);
+                                                causal, drop);
   return cudaGetLastError();
 }
 
 // The tensor-core path where it applies, else the CUDA-core kernel above.
-template <typename TQ, typename TK, bool PRESCALE>
+// DROP is instantiated by the flash forward only; the decode step's
+// cross-attention never drops.
+template <typename TQ, typename TK, bool PRESCALE, bool DROP = false>
 inline cudaError_t launch_attention(const TQ* q, const TK* k, const TK* v, const float* bias,
                                     TQ* out, float* lse, int N, int Sq, int Sk, int H, int hd,
-                                    float scale, int causal, cudaStream_t stream) {
+                                    float scale, int causal, cudaStream_t stream,
+                                    Dropout drop = Dropout()) {
   if constexpr (std::is_same<TK, __nv_bfloat16>::value &&
                 (std::is_same<TQ, float>::value || !PRESCALE)) {
     if (hd == TC_HD && Sk <= TC_MAX_SK) {
       const int kt = (Sk + 15) / 16;
 #define FF_ATT_TC(KT) \
-  return launch_attention_tc<TQ, KT, PRESCALE>(q, k, v, bias, out, lse, N, Sq, Sk, H, scale, \
-                                               causal, stream)
+  return launch_attention_tc<TQ, KT, PRESCALE, DROP>(q, k, v, bias, out, lse, N, Sq, Sk, H, \
+                                                     scale, causal, drop, stream)
       if (kt <= 1) FF_ATT_TC(1);
       if (kt <= 2) FF_ATT_TC(2);
       if (kt <= 3) FF_ATT_TC(3);
@@ -314,12 +335,12 @@ inline cudaError_t launch_attention(const TQ* q, const TK* k, const TK* v, const
     }
   }
   size_t smem = attention_smem_bytes<TK>(Sk, hd);
-  auto kernel = attention_kernel<TQ, TK, PRESCALE>;
+  auto kernel = attention_kernel<TQ, TK, PRESCALE, DROP>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(N * H, (Sq + ATT_ROWS - 1) / ATT_ROWS);
   kernel<<<grid, ATT_WARPS * 32, smem, stream>>>(q, k, v, bias, out, lse, Sq, Sk, H, hd, scale,
-                                                 causal);
+                                                 causal, drop);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // Shared device helpers for the port's kernels: dtype conversion, rounding
-// to the compute type, warp reductions and the first-index argmax merge.
+// to the compute type, warp reductions, the first-index argmax merge and
+// the counter-based keep mask of attention dropout.
 #pragma once
 
 #include <cfloat>
@@ -49,6 +50,110 @@ __device__ __forceinline__ void argmax_merge(float& v, int& i, float v2, int i2)
   if (v2 > v || (v2 == v && i2 < i)) {
     v = v2;
     i = i2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention-probability dropout: a counter-based keep mask (Philox4x32-10,
+// written out here; no cuRAND). It takes the place of the TPU PRNG that
+// faceformer_tpu/ops/flash.py::_keep_mask reseeds per (grid block, head).
+// The key is the call's 64-bit seed; the counter is (key index / 4, query
+// index, head, sequence) and holds nothing of a kernel's tiling, so the
+// forward and the backward kernels regenerate the same mask whatever their
+// blocks, and ops/flash.py::philox_keep_mask computes the very same bits in
+// integer tensor ops. One Philox call yields the bits of four neighbouring
+// keys. keep <=> bits < threshold, threshold = uint32((1 - rate) * 2^32).
+// A kept probability is multiplied by the fp32 value of 1 / (1 - rate), as
+// the plain versions do: a division by a run-time value costs these kernels
+// more than the Philox draw does.
+// ---------------------------------------------------------------------------
+struct Dropout {
+  uint32_t seed_lo = 0, seed_hi = 0;
+  uint32_t threshold = 0;  // 0: dropout off
+  float scale = 1.f;       // 1 / (1 - rate) in fp32; kept probabilities are multiplied by it
+  __host__ __device__ bool on() const { return threshold != 0u; }
+};
+
+inline Dropout make_dropout(unsigned long long seed, uint32_t threshold, float scale) {
+  Dropout d;
+  d.seed_lo = static_cast<uint32_t>(seed & 0xffffffffull);
+  d.seed_hi = static_cast<uint32_t>(seed >> 32);
+  d.threshold = threshold;
+  d.scale = scale;
+  return d;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += W0;
+    k1 += W1;
+  }
+  return c;
+}
+
+// The random bits of keys 4*(j/4) .. 4*(j/4)+3 for query i of (sequence n,
+// head h).
+__device__ __forceinline__ uint4 dropout_bits4(const Dropout& dr, int n, int h, int i, int j) {
+  return philox4x32_10(make_uint4((uint32_t)(j >> 2), (uint32_t)i, (uint32_t)h, (uint32_t)n),
+                       dr.seed_lo, dr.seed_hi);
+}
+
+__device__ __forceinline__ bool dropout_keep(const Dropout& dr, int n, int h, int i, int j) {
+  const uint4 r = dropout_bits4(dr, n, h, i, j);
+  const int c = j & 3;
+  const uint32_t bits = c == 0 ? r.x : c == 1 ? r.y : c == 2 ? r.z : r.w;
+  return bits < dr.threshold;
+}
+
+// The mma C fragment of a (16 rows x 8 keys) tile holds, in lane (g, tig),
+// keys j = tile + 2 tig and j + 1 of rows ra = g and rb = g + 8: lanes tig
+// and tig ^ 1 hold the two halves of one 4-key group. The even lane draws
+// the group's bits for row ra, the odd lane for row rb, and they swap
+// halves, so a tile costs each lane one Philox call, not two. Every lane of
+// the warp must call it. keep[0..1]: row ra, keys j, j + 1; keep[2..3]: rb.
+__device__ __forceinline__ void dropout_keep_rows(const Dropout& dr, int n, int h, int ra, int rb,
+                                                  int j, int tig, bool* keep) {
+  const bool odd = (tig & 1) != 0;
+  const uint4 r = dropout_bits4(dr, n, h, odd ? rb : ra, j);
+  const uint32_t g0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+  const uint32_t g1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+  keep[0] = (odd ? g0 : r.x) < dr.threshold;
+  keep[1] = (odd ? g1 : r.y) < dr.threshold;
+  keep[2] = (odd ? r.z : g0) < dr.threshold;
+  keep[3] = (odd ? r.w : g1) < dr.threshold;
+}
+
+// The transposed tile (16 keys x 8 queries) holds, in lane (g, tig), queries
+// i and i + 1 of keys ka = base + g and kb = ka + 8 (base a multiple of 4):
+// the four lanes g = 4m + c, c = 0..3, hold the four keys of one group, for
+// ka and for kb. They need four Philox calls between them, (ka, i),
+// (ka, i + 1), (kb, i), (kb, i + 1); lane c draws call c and the four lanes
+// pass the words round, so a tile costs each lane one call, not four. Every
+// lane of the warp must call it. keep[0..1]: key ka, queries i, i + 1;
+// keep[2..3]: kb.
+__device__ __forceinline__ void dropout_keep_keys(const Dropout& dr, int n, int h, int i, int ka,
+                                                  int kb, int lane, bool* keep) {
+  const int c = (lane >> 2) & 3;
+  const uint4 r = dropout_bits4(dr, n, h, i + (c & 1), c < 2 ? ka : kb);
+#pragma unroll
+  for (int round = 0; round < 4; ++round) {
+    // this lane reads call (c + round) % 4; the lane that reads from it is
+    // lane (c - round) % 4 and wants that lane's own word
+    const int want = (c - round) & 3, call = (c + round) & 3;
+    const uint32_t send = want == 0 ? r.x : want == 1 ? r.y : want == 2 ? r.z : r.w;
+    const uint32_t got = round == 0 ? send
+                                    : __shfl_sync(0xffffffffu, send, (lane & ~12) | (call << 2));
+    const bool k = got < dr.threshold;
+    if (call == 0) keep[0] = k;
+    if (call == 1) keep[1] = k;
+    if (call == 2) keep[2] = k;
+    if (call == 3) keep[3] = k;
   }
 }
 

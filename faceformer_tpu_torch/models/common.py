@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import torch.nn.functional as F
+
 import torch
 
 from faceformer_tpu_torch.config import ModelConfig
@@ -31,16 +33,45 @@ def encode(
     inputs: torch.Tensor,
     input_mask: torch.Tensor,
     dtype: torch.dtype = torch.float32,
+    seeds=None,
+    impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Embed + encode at eval (no dropout). Returns (memory (N, 4+L, E),
-    pos (1, 4+L, E), padded key mask (N, 4+L))."""
+    """Embed + encode. ``seeds`` ((layers, ENCODER_SITES) ints) switches
+    dropout on; None is eval. Returns (memory (N, 4+L, E), pos (1, 4+L, E),
+    padded key mask (N, 4+L))."""
     x = vanilla_embedding(model.embed, inputs.to(dtype))
     pos = position_embedding(model.pos_table, x.shape[1], dtype)
     padded_mask = pad_input_mask(input_mask, cfg.token.length)
     memory = L.encoder_forward(
         model.encoder, x, pos, padded_mask, num_head=cfg.num_head,
-        activation=cfg.activation, normalize_before=cfg.normalize_before)
+        activation=cfg.activation, normalize_before=cfg.normalize_before,
+        dropout_rate=cfg.dropout, seeds=seeds, remat=cfg.remat,
+        remat_policy=cfg.remat_policy, impl=impl)
     return memory, pos, padded_mask
+
+
+def pad_target_time(
+    target: torch.Tensor, tgt_key_padding: torch.Tensor, t: int
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Pad the face-token (time) axis to a multiple of 8 once before the
+    decoder stack, as the JAX function does (common.py:86-101). Padded
+    positions carry PAD tokens and a True key-padding mask and sit after
+    every real position, so causal attention leaves the real outputs
+    unchanged; callers slice the pointer output back to t. The port keeps
+    the pad so that its activations compare row for row with JAX's."""
+    t_pad = -(-t // 8) * 8
+    if t_pad == t:
+        return target, tgt_key_padding, t_pad
+    return (F.pad(target, (0, t_pad - t)),
+            F.pad(tgt_key_padding, (0, t_pad - t), value=True), t_pad)
+
+
+def padded_query_pos(table: torch.Tensor, t: int, t_pad: int, dtype) -> torch.Tensor:
+    """First t learned query positions, zero-padded to t_pad rows."""
+    qp = table[:t].to(dtype)
+    if t_pad != t:
+        qp = F.pad(qp, (0, 0, 0, t_pad - t))
+    return qp
 
 
 def gather_memory_rows(memory: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:

@@ -12,19 +12,27 @@ them to the activation dtype at use, as the JAX package does. Math contract
   - LayerNorm and softmax run in fp32 whatever the activation dtype.
 
 Every attention call goes through ``ops.flash.flash_attention`` (the CUDA
-kernel on a card, its plain version on the CPU). Dropout is identity: the
-port serves only so far.
+kernels on a card, forward and backward; their plain versions on the CPU).
+
+Dropout (training) sits where the JAX layers have it: on the attention
+probabilities inside the flash kernel, after self-attention, after
+cross-attention, after the FFN activation and after the FFN output.
+Randomness is explicit, as ``rng`` is in JAX: a layer gets one integer seed
+per site (``seeds``), and each site makes its mask from its seed alone. No
+mask depends on a generator's state, so a layer that runs twice under remat
+draws the same masks. ``seeds=None`` is eval: nothing is dropped.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from faceformer_tpu_torch.ops.flash import flash_attention, padding_mask_bias
 
@@ -100,6 +108,36 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return x @ lin.weight.to(x.dtype).t() + lin.bias.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Inverted dropout; identity when seed is None (eval) or rate == 0.
+    The mask is a function of (seed, shape, device) only: a generator on
+    x's device seeded with ``seed`` draws it."""
+    if seed is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+ENCODER_SITES = 4  # attention probabilities, after attention, FFN activation, FFN output
+DECODER_SITES = 6  # self-attn probs, after it, cross-attn probs, after it, FFN act, FFN out
+
+
+def draw_seeds(generator: torch.Generator, count: int):
+    """``count`` integer seeds from ``generator``, as Python ints."""
+    return torch.randint(0, 2 ** 62, (count,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def _sites(seeds: Optional[Sequence[int]], count: int):
+    if seeds is None:
+        return (None,) * count
+    if len(seeds) != count:
+        raise ValueError(f"a layer needs {count} dropout seeds, got {len(seeds)}")
+    return tuple(seeds)
+
+
 def activation_fn(name: str):
     if name == "relu":
         return torch.relu
@@ -122,6 +160,9 @@ def multihead_attention(
     num_head: int,
     causal: bool = False,
     key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Batch-first multi-head attention.
 
@@ -130,7 +171,9 @@ def multihead_attention(
     anchor axis folds into the query sequence (one attention per sample,
     no per-anchor copy of memory; layers.py:325-332). key_padding_mask:
     broadcastable to (*Bk, Sk), True = padded. ``causal`` masks keys after
-    each query (training's decoder self-attention).
+    each query (training's decoder self-attention). With a ``seed``, the
+    attention probabilities are dropped at ``dropout_rate`` inside the kernel.
+    ``impl="plain"`` runs the flash kernels' plain versions, for comparisons.
     """
     q = _split_heads(linear(attn.q, query), num_head)
     k = _split_heads(linear(attn.k, key), num_head)
@@ -145,7 +188,8 @@ def multihead_attention(
               if key_padding_mask is None
               else key_padding_mask.expand(n, 1, sk).reshape(n, sk))
         out = flash_attention(q.reshape(n, f * t, h, hd), k[:, 0], v[:, 0],
-                              padding_mask_bias(kp))
+                              padding_mask_bias(kp), dropout_rate=dropout_rate, seed=seed,
+                              impl=impl)
         return linear(attn.o, out.reshape(n, f, t, h * hd))
 
     *batch, sq, h, hd = q.shape
@@ -158,7 +202,7 @@ def multihead_attention(
           else key_padding_mask.expand(*batch, sk).reshape(n, sk))
     out = flash_attention(
         q.reshape(n, sq, h, hd), k.reshape(n, sk, h, hd), v.reshape(n, sk, h, hd),
-        padding_mask_bias(kp), causal=causal)
+        padding_mask_bias(kp), causal=causal, dropout_rate=dropout_rate, seed=seed, impl=impl)
     return linear(attn.o, out.reshape(*batch, sq, h * hd))
 
 
@@ -167,8 +211,9 @@ def multihead_attention(
 # ---------------------------------------------------------------------------
 
 
-def _ffn(ffn: FeedForward, x: torch.Tensor, act) -> torch.Tensor:
-    return linear(ffn.lin2, act(linear(ffn.lin1, x)))
+def _ffn(ffn: FeedForward, x: torch.Tensor, act, rate: float = 0.0,
+         seed: Optional[int] = None) -> torch.Tensor:
+    return linear(ffn.lin2, dropout(act(linear(ffn.lin1, x)), rate, seed))
 
 
 def encoder_layer(
@@ -180,20 +225,27 @@ def encoder_layer(
     num_head: int,
     activation: str,
     normalize_before: bool,
+    dropout_rate: float = 0.0,
+    seeds: Optional[Sequence[int]] = None,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """One encoder block (reference: transformer.py:146-184)."""
     act = activation_fn(activation)
+    rate = dropout_rate
+    s_attn, s1, s_ffn_in, s2 = _sites(seeds, ENCODER_SITES)
+    attend = dict(key_padding_mask=key_padding_mask, dropout_rate=rate, seed=s_attn, impl=impl)
     if normalize_before:
         x2 = layer_norm(layer.norm1, x)
         qk = x2 + pos
-        x = x + multihead_attention(layer.self_attn, qk, qk, x2, num_head,
-                                    key_padding_mask=key_padding_mask)
-        return x + _ffn(layer.ffn, layer_norm(layer.norm2, x), act)
+        sa = multihead_attention(layer.self_attn, qk, qk, x2, num_head, **attend)
+        x = x + dropout(sa, rate, s1)
+        x2 = layer_norm(layer.norm2, x)
+        return x + dropout(_ffn(layer.ffn, x2, act, rate, s_ffn_in), rate, s2)
     qk = x + pos
-    sa = multihead_attention(layer.self_attn, qk, qk, x, num_head,
-                             key_padding_mask=key_padding_mask)
-    x = layer_norm(layer.norm1, x + sa)
-    return layer_norm(layer.norm2, x + _ffn(layer.ffn, x, act))
+    sa = multihead_attention(layer.self_attn, qk, qk, x, num_head, **attend)
+    x = layer_norm(layer.norm1, x + dropout(sa, rate, s1))
+    ff = _ffn(layer.ffn, x, act, rate, s_ffn_in)
+    return layer_norm(layer.norm2, x + dropout(ff, rate, s2))
 
 
 def decoder_layer(
@@ -209,31 +261,68 @@ def decoder_layer(
     causal: bool = False,
     tgt_key_padding_mask: Optional[torch.Tensor] = None,
     memory_key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seeds: Optional[Sequence[int]] = None,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """One decoder block: self-attn, cross-attn to memory, FFN
     (reference: transformer.py:209-259). ``memory`` may carry a size-1
     anchor axis against ``tgt`` (anchor-parallel decode)."""
     act = activation_fn(activation)
+    rate = dropout_rate
+    s_sa, s1, s_ca, s2, s_ffn_in, s3 = _sites(seeds, DECODER_SITES)
+    self_kw = dict(causal=causal, key_padding_mask=tgt_key_padding_mask, dropout_rate=rate,
+                   seed=s_sa, impl=impl)
+    cross_kw = dict(key_padding_mask=memory_key_padding_mask, dropout_rate=rate, seed=s_ca,
+                    impl=impl)
     if normalize_before:
         t2 = layer_norm(layer.norm1, tgt)
         qk = t2 + query_pos
-        tgt = tgt + multihead_attention(
-            layer.self_attn, qk, qk, t2, num_head, causal=causal,
-            key_padding_mask=tgt_key_padding_mask)
+        sa = multihead_attention(layer.self_attn, qk, qk, t2, num_head, **self_kw)
+        tgt = tgt + dropout(sa, rate, s1)
         t2 = layer_norm(layer.norm2, tgt)
-        tgt = tgt + multihead_attention(
-            layer.cross_attn, t2 + query_pos, memory + pos, memory, num_head,
-            key_padding_mask=memory_key_padding_mask)
+        ca = multihead_attention(layer.cross_attn, t2 + query_pos, memory + pos, memory,
+                                 num_head, **cross_kw)
+        tgt = tgt + dropout(ca, rate, s2)
         t2 = layer_norm(layer.norm3, tgt)
-        return tgt + _ffn(layer.ffn, t2, act)
+        return tgt + dropout(_ffn(layer.ffn, t2, act, rate, s_ffn_in), rate, s3)
     qk = tgt + query_pos
-    sa = multihead_attention(layer.self_attn, qk, qk, tgt, num_head, causal=causal,
-                             key_padding_mask=tgt_key_padding_mask)
-    tgt = layer_norm(layer.norm1, tgt + sa)
+    sa = multihead_attention(layer.self_attn, qk, qk, tgt, num_head, **self_kw)
+    tgt = layer_norm(layer.norm1, tgt + dropout(sa, rate, s1))
     ca = multihead_attention(layer.cross_attn, tgt + query_pos, memory + pos, memory,
-                             num_head, key_padding_mask=memory_key_padding_mask)
-    tgt = layer_norm(layer.norm2, tgt + ca)
-    return layer_norm(layer.norm3, tgt + _ffn(layer.ffn, tgt, act))
+                             num_head, **cross_kw)
+    tgt = layer_norm(layer.norm2, tgt + dropout(ca, rate, s2))
+    ff = _ffn(layer.ffn, tgt, act, rate, s_ffn_in)
+    return layer_norm(layer.norm3, tgt + dropout(ff, rate, s3))
+
+
+REMAT_POLICIES = ("full", "dots", "attn", "attn_ffn")
+
+
+def _run_stack(layer_fn, layers, x: torch.Tensor, seeds, remat: bool, remat_policy: str):
+    """Apply ``layer_fn(layer, x, layer_seeds)`` over the stack. ``seeds``
+    holds one row of site seeds per layer, or is None (eval).
+
+    ``remat`` recomputes each layer in the backward pass and saves only the
+    layer boundary (the JAX package's "full" policy, layers.py:475-506). The
+    seeds are arguments of the layer, so the recomputation replays the same
+    dropout masks. The named policies that keep tagged block outputs
+    resident have no counterpart here yet."""
+    if remat and remat_policy != "full":
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"model.remat_policy must be one of {sorted(REMAT_POLICIES)}, "
+                             f"got {remat_policy!r}")
+        raise NotImplementedError(
+            f"remat_policy {remat_policy!r} is not ported: only 'full' "
+            "(torch.utils.checkpoint around each layer) is")
+    for i, layer in enumerate(layers):
+        layer_seeds = None if seeds is None else seeds[i]
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer_fn, layer, x, layer_seeds, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer_fn(layer, x, layer_seeds)
+    return x
 
 
 def encoder_forward(
@@ -245,12 +334,21 @@ def encoder_forward(
     num_head: int,
     activation: str = "relu",
     normalize_before: bool = True,
+    dropout_rate: float = 0.0,
+    seeds=None,
+    remat: bool = False,
+    remat_policy: str = "full",
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Full encoder stack + final norm in pre-LN (reference:
-    transformer.py:62-83)."""
-    for layer in encoder.layers:
-        x = encoder_layer(layer, x, pos, key_padding_mask, num_head=num_head,
-                          activation=activation, normalize_before=normalize_before)
+    transformer.py:62-83). ``seeds``: (layers, ENCODER_SITES) ints, or None."""
+
+    def fn(layer, x, layer_seeds):
+        return encoder_layer(layer, x, pos, key_padding_mask, num_head=num_head,
+                             activation=activation, normalize_before=normalize_before,
+                             dropout_rate=dropout_rate, seeds=layer_seeds, impl=impl)
+
+    x = _run_stack(fn, encoder.layers, x, seeds, remat, remat_policy)
     if normalize_before:
         x = layer_norm(encoder.norm, x)
     return x
@@ -269,13 +367,23 @@ def decoder_forward(
     causal: bool = False,
     tgt_key_padding_mask: Optional[torch.Tensor] = None,
     memory_key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seeds=None,
+    remat: bool = False,
+    remat_policy: str = "full",
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Full decoder stack + final norm (the decoder norm exists in both
-    pre/post-LN modes, reference model.py:42-43)."""
-    for layer in decoder.layers:
-        tgt = decoder_layer(
-            layer, tgt, memory, query_pos, pos, num_head=num_head,
+    pre/post-LN modes, reference model.py:42-43). ``seeds``: (layers,
+    DECODER_SITES) ints, or None."""
+
+    def fn(layer, x, layer_seeds):
+        return decoder_layer(
+            layer, x, memory, query_pos, pos, num_head=num_head,
             activation=activation, normalize_before=normalize_before,
             causal=causal, tgt_key_padding_mask=tgt_key_padding_mask,
-            memory_key_padding_mask=memory_key_padding_mask)
+            memory_key_padding_mask=memory_key_padding_mask,
+            dropout_rate=dropout_rate, seeds=layer_seeds, impl=impl)
+
+    tgt = _run_stack(fn, decoder.layers, tgt, seeds, remat, remat_policy)
     return layer_norm(decoder.norm, tgt)

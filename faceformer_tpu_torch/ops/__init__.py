@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"pointer_argmax": 0, "flash_fwd": 0, "decode_step": 0}
+LAUNCHES: Dict[str, int] = {"pointer_argmax": 0, "flash_fwd": 0, "flash_bwd": 0,
+                            "decode_step": 0}
 
 
 def reset_launches() -> None:

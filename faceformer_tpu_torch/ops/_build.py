@@ -23,7 +23,7 @@ from typing import Dict, List, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "faceformer_tpu_torch")
-SOURCES = ("pointer", "flash", "decode_step")
+SOURCES = ("pointer", "flash", "flash_bwd", "decode_step")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -95,13 +95,29 @@ def params_from_jax(model, tree: Tree) -> None:
         raise ValueError(f"JAX tree has {_count_leaves(tree)} leaves, the model {n_leaves}")
 
 
-@torch.no_grad()
 def params_to_numpy(model) -> Tree:
     """The model's parameters as a JAX-layout tree of numpy arrays."""
+    return _to_numpy(model, lambda param: param)
+
+
+def grads_to_numpy(model) -> Tree:
+    """The parameters' gradients (``.grad``) in the same JAX layout, stacked
+    over layers, so they compare leaf by leaf with a JAX gradient tree. A
+    parameter the loss does not reach (the encoder's final norm in post-LN)
+    has no ``.grad`` and gives zeros, as ``jax.grad`` does."""
+
+    def grad(param):
+        return torch.zeros_like(param) if param.grad is None else param.grad
+
+    return _to_numpy(model, grad)
+
+
+@torch.no_grad()
+def _to_numpy(model, pick) -> Tree:
     stacked: Dict[Tuple[str, ...], list] = {}
     tree: Tree = {}
     for path, param, layer, transposed in _leaves(model):
-        arr = param.detach().cpu()
+        arr = pick(param).detach().float().cpu()
         arr = (arr.t() if transposed else arr).contiguous().numpy()
         if layer is None:
             _set(tree, path, arr)

@@ -15,13 +15,20 @@ import pytest
 import torch
 
 from faceformer_tpu_torch import ops
-from faceformer_tpu_torch.config import ModelConfig
+from faceformer_tpu_torch.config import ModelConfig, config_from_dict
 from faceformer_tpu_torch.decode import NEG, _cross_kv, greedy_decode_parallel
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
 from faceformer_tpu_torch.ops.decode_step import decode_step, pack_decoder_weights
-from faceformer_tpu_torch.ops.flash import flash_attention_fwd, padding_mask_bias
+from faceformer_tpu_torch.ops.flash import (
+    flash_attention_bwd,
+    flash_attention_fwd,
+    keep_mask_on_card,
+    padding_mask_bias,
+    philox_keep_mask,
+)
 from faceformer_tpu_torch.ops.pointer import pointer_argmax
 from faceformer_tpu_torch.params import jitter_affine_
+from faceformer_tpu_torch.train.step import make_optimizer, train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -85,6 +92,95 @@ def test_flash_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal):
     out_p, lse_p = flash_attention_fwd(q, k, v, bias, causal=causal, impl="plain")
     assert float((out.float() - out_p.float()).abs().max()) <= tol
     assert float((lse - lse_p).abs().max()) <= tol
+
+
+def flash_case(dev, dtype, n, sq, sk, seed=7, h=4, hd=64):
+    rng = np.random.default_rng(seed)
+    q, do = (torch.as_tensor(rng.standard_normal((n, sq, h, hd)), dtype=dtype, device=dev)
+             for _ in range(2))
+    k, v = (torch.as_tensor(rng.standard_normal((n, sk, h, hd)), dtype=dtype, device=dev)
+            for _ in range(2))
+    valid = torch.as_tensor(rng.integers(max(1, sk // 2), sk + 1, (n, 1)), device=dev)
+    bias = padding_mask_bias(torch.arange(sk, device=dev)[None] >= valid)
+    return q, k, v, bias, do
+
+
+def rel_err(got, want):
+    """Largest error relative to the reference tensor's largest magnitude."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+# the three training regimes, small and at the full `ours` width (8 heads
+# of 64; a few sequences each): short causal decoder rows, the encoder, and
+# the anchor-folded cross-attention
+FLASH_SHAPES = [(200, 12, 12, True), (3, 50, 50, False), (2, 300, 90, False),
+                (64, 40, 40, True), (2, 220, 220, False), (1, 8640, 220, False)]
+
+
+def test_keep_mask_on_card_equals_plain(cuda_device):
+    for seed, shape in ((5, (3, 4, 40, 40)), (2 ** 40 + 17, (2, 8, 220, 218))):
+        got = keep_mask_on_card(seed, *shape, 0.2, cuda_device)
+        want = philox_keep_mask(seed, *shape, 0.2, device=cuda_device)
+        assert torch.equal(got, want)
+        assert torch.equal(want.cpu(), philox_keep_mask(seed, *shape, 0.2))
+        assert abs(float(got.float().mean()) - 0.8) < 0.01
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,sq,sk,causal", FLASH_SHAPES)
+def test_flash_dropout_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal):
+    """K2 with in-kernel dropout against its plain version (same Philox
+    mask), and the mask the kernel applied read back through a one-hot v."""
+    h = 8 if sq >= 40 else 4
+    q, k, v, bias, _ = flash_case(cuda_device, dtype, n, sq, sk, h=h)
+    out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, causal=causal,
+                        dropout_rate=0.2, seed=31)
+    out_p, lse_p = flash_attention_fwd(q, k, v, bias, causal=causal, impl="plain",
+                                       dropout_rate=0.2, seed=31)
+    assert float((out.float() - out_p.float()).abs().max()) <= tol
+    assert float((lse - lse_p).abs().max()) <= tol
+    again, _ = flash_attention_fwd(q, k, v, bias, causal=causal, dropout_rate=0.2, seed=31)
+    other, _ = flash_attention_fwd(q, k, v, bias, causal=causal, dropout_rate=0.2, seed=32)
+    assert torch.equal(out, again) and not torch.equal(out, other)
+    # v = one-hot of the key index inside a 64-key window: out[i, d] is then
+    # p_used[i, window + d], which is 0 exactly where the kernel dropped it
+    keep = philox_keep_mask(31, n, h, sq, sk, 0.2, device=cuda_device)
+    live = (bias == 0)[:, None, None, :].expand(n, h, sq, sk).clone()
+    if causal:
+        live &= ~torch.ones((sq, sk), dtype=torch.bool, device=cuda_device).triu(1)
+    for w0 in range(0, sk, 64):
+        width = min(64, sk - w0)
+        v1 = torch.zeros_like(v)
+        idx = torch.arange(width, device=cuda_device)
+        v1[:, w0 + idx, :, idx] = 1.0
+        p_used = flash_attention_fwd(q, k, v1, bias, causal=causal, dropout_rate=0.2,
+                                     seed=31)[0][..., :width].permute(0, 2, 1, 3)
+        window = slice(w0, w0 + width)
+        assert torch.equal((p_used != 0) & live[..., window], keep[..., window] & live[..., window])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,sq,sk,causal", FLASH_SHAPES)
+def test_flash_bwd_kernel_on_card(cuda_device, dtype, tol, rate, n, sq, sk, causal):
+    """K3 against its plain version: dq, dk, dv relative to each tensor's
+    largest magnitude, bitwise repeatable, and sensitive to the seed."""
+    h = 8 if sq >= 40 else 4
+    q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=h)
+    _, lse = flash_attention_fwd(q, k, v, bias, causal=causal, impl="plain", dropout_rate=rate,
+                                 seed=9)
+    kw = dict(causal=causal, dropout_rate=rate, seed=9)
+    got = launched("flash_bwd", flash_attention_bwd, q, k, v, bias, lse, do, **kw)
+    want = flash_attention_bwd(q, k, v, bias, lse, do, impl="plain", **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert rel_err(a, b) <= tol, (name, rel_err(a, b))
+    again = flash_attention_bwd(q, k, v, bias, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if rate:
+        other = flash_attention_bwd(q, k, v, bias, lse, do, causal=causal, dropout_rate=rate,
+                                    seed=10)
+        assert not torch.equal(got[2], other[2])
 
 
 def decode_state(dev, dtype, n=3, step=5, seed=2):
@@ -163,3 +259,56 @@ def test_fused_grids_equal_causal_cache_on_card(cuda_device):
                                     early_stop=False)["predict"]
     assert ops.LAUNCHES["pointer_argmax"] == CFG.max_face_length - 1
     assert torch.equal(fused, cached)
+
+
+def train_case(dev, dropout, n=3, seed=11):
+    """A seeded model and a batch with well-formed labels: every row starts
+    with a token and ends with a face-type token, then PAD."""
+    cfg = config_from_dict({"trainer": {"precision": "fp32", "lr": 1e-3}})
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(CFG, dropout=dropout))
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    model = SurfaceFormerParallel(cfg.model, generator=gen, device=dev)
+    jitter_affine_(model, gen)
+    lines, t = CFG.num_lines, CFG.max_face_length
+    num = rng.integers(10, lines + 1, n)
+    label = np.zeros((n, lines, t), np.int32)
+    for i in range(n):
+        for f in range(lines):
+            size = int(rng.integers(3, t - 1))
+            label[i, f, :size] = rng.integers(4, 4 + num[i], size)
+            label[i, f, size] = rng.integers(1, 4)
+    batch = {"input": rng.uniform(-1, 1, (n, lines, CFG.num_points_per_line, 2)).astype(np.float32),
+             "input_mask": np.arange(lines)[None] >= num[:, None],
+             "label": label, "label_mask": label == 0}
+    return cfg, model, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+def test_train_step_kernels_equal_plain_on_card(cuda_device, dropout):
+    """One whole train_step through the flash kernels against the same step
+    through their plain versions, fp32: the launch counts, the loss and
+    every gradient (Adam's normalised update would turn rounding noise in
+    near-zero gradients into parameter differences, so parameters are not
+    compared)."""
+    results = {}
+    for impl in ("auto", "plain"):
+        cfg, model, batch = train_case(cuda_device, dropout)
+        optimizer = make_optimizer(model, cfg.trainer)
+        gen = torch.Generator().manual_seed(3) if dropout else None
+        ops.reset_launches()
+        loss, acc = train_step(model, optimizer, batch, gen, cfg, impl=impl)
+        calls = CFG.num_encoder_layers + 2 * CFG.num_decoder_layers
+        want = (calls, calls) if impl == "auto" else (0, 0)
+        assert (ops.LAUNCHES["flash_fwd"], ops.LAUNCHES["flash_bwd"]) == want
+        results[impl] = (loss, {k: p.grad.clone() for k, p in model.named_parameters()})
+    (loss_k, grads_k), (loss_p, grads_p) = results["auto"], results["plain"]
+    assert torch.isfinite(loss_k) and abs(float(loss_k) - float(loss_p)) <= 1e-5
+    for name, g in grads_p.items():
+        if name.endswith("attn.k.bias"):
+            # the softmax ignores a key bias: its gradient is rounding noise
+            assert float(grads_k[name].abs().max()) <= 1e-5 and float(g.abs().max()) <= 1e-5
+        else:
+            assert rel_err(grads_k[name], g) <= 1e-3, name

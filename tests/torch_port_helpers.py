@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from faceformer_tpu.config import config_to_dict
+from faceformer_tpu.data.batching import collate
+from faceformer_tpu.data.dataset import ABCDatasetParallel
+from faceformer_tpu.geometry.fixtures import build_sample, make_box, make_prism
 from faceformer_tpu.models.parallel import SurfaceFormerParallel as JaxParallel
 from faceformer_tpu_torch.config import config_from_dict
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
@@ -67,3 +70,21 @@ def torch_batch(batch):
     """numpy arrays -> CPU tensors (list/str fields dropped)."""
     return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()
             if not isinstance(v, (list, str))}
+
+
+def fixture_batch(cfg):
+    """A training batch of two fixture solids (a box and a prism), packed by
+    the JAX package's dataset, as numpy arrays."""
+    samples = [build_sample(make_box(), theta=25.0, phi=45.0),
+               build_sample(make_prism(), theta=35.0, phi=20.0)]
+    ds = ABCDatasetParallel.from_samples(samples, cfg)
+    return collate([ds[0], ds[1]])
+
+
+def leaves(tree, path=()):
+    """(slash-joined path, leaf) pairs of a nested dict."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from leaves(value, path + (key,))
+        else:
+            yield "/".join(path + (key,)), value
