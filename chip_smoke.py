@@ -41,6 +41,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -899,6 +900,7 @@ def run_training(cfg, rng, seed, samples, dev):
             train_step(model, optimizer, batch, dgen, tcfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         steps = 5
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -906,12 +908,15 @@ def run_training(cfg, rng, seed, samples, dev):
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / steps
         peak = torch.cuda.max_memory_allocated()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+        reserved = torch.cuda.max_memory_reserved()
         split = np.mean([timed_step(model, optimizer, batch, dgen, tcfg) for _ in range(3)],
                         axis=0)
         print(f"[3] train {label} N={len(samples)} bf16 dropout {mc.dropout}: samples/s="
               f"{len(samples) / step_s:.2f} step_ms={step_s * 1e3:.2f} forward_ms={split[0]:.2f} "
               f"backward_ms={split[1]:.2f} optimizer_ms={split[2]:.2f} "
-              f"max_memory_allocated={peak}", flush=True)
+              f"max_memory_allocated={peak} max_memory_reserved={reserved} "
+              f"allocator_retries={retries}", flush=True)
 
     measure("remat off")
     profile_call("train step (remat off)",
@@ -964,9 +969,12 @@ def main() -> int:
     print(f"[1] built {built} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in _build.SOURCES:
         with open(_build.log_path(name)) as f:
+            kernel = ""
             for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"[1] ptxas {name}: {line.strip()}", flush=True)
+                if "Compiling entry function" in line:
+                    kernel = line.split("'")[1]
+                elif "registers" in line or "spill" in line:
+                    print(f"[1] ptxas {name} {kernel}: {line.strip()}", flush=True)
 
     cfg = load_config("configs/ours.yml")
     mc = cfg.model
@@ -1085,6 +1093,11 @@ def main() -> int:
     del inp
     # K3 (and K2 with dropout) at the three training shapes, bf16, dropout on
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    k3_lib = _build.load("flash_bwd")
+    k3_lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    k3_lib.flash_bwd_smem_bytes.restype = ctypes.c_size_t
+    k3_lib.flash_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 7
+    k3_lib.flash_bwd_workspace_bytes.restype = ctypes.c_size_t
     k3_rows = {}
     for label, n3, sq, sk, causal, _ in TRAIN_SHAPES:
         q, k, v, do, bias = train_attention_inputs(rng, dev, bf, label, n3, sq, sk, h, hd)
@@ -1104,18 +1117,29 @@ def main() -> int:
             above = torch.ones((sq, sk), dtype=torch.bool, device=dev).triu(1)
             mask4 = mask4.expand(n3, 1, sq, sk).masked_fill(above, neg)
         mask4 = mask4.to(bf)
+        # the library's forward with the same mask and dropout, timed alike
+        with torch.no_grad():
+            fwd_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask4, dropout_p=TRAIN_RATE),
+                              iters=5)
         out = sdpa(qt, kt, vt, attn_mask=mask4, dropout_p=TRAIN_RATE)
         dot = do.transpose(1, 2)
         lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
                       iters=5)
         moved = nbytes(q, k, v, do, lse, bias) + nbytes(q, k, v)
         b, by = bound_ms(moved, 5 * 2.0 * n3 * h * sq * sk * hd, bf)
+        fb, fby = bound_ms(nbytes(q, k, v, bias, q, lse), 2 * 2.0 * n3 * h * sq * sk * hd, bf)
+        smem = k3_lib.flash_bwd_smem_bytes(1, sk, hd)
+        work = k3_lib.flash_bwd_workspace_bytes(1, n3, sq, sk, h, hd, 1)
         k3_rows[label] = dict(ms=ms, ms_no_dropout=ms0, plain_ms=plain, library_ms=lib,
-                              bound_ms=b, bound_by=by, fwd_ms=fwd_ms, fwd_ms_no_dropout=fwd0_ms)
+                              bound_ms=b, bound_by=by, fwd_ms=fwd_ms, fwd_ms_no_dropout=fwd0_ms,
+                              fwd_bound_ms=fb, fwd_bound_by=fby, fwd_library_ms=fwd_lib,
+                              smem_bytes=smem, workspace_bytes=work)
         print(f"[4] flash_bwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
               f"{TRAIN_RATE}: kernel {ms:.4f} ms (dropout 0: {ms0:.4f}), plain {plain:.4f} ms, "
-              f"library backward {lib:.4f} ms, bound {b:.5f} ms ({by}); forward kernel "
-              f"{fwd_ms:.4f} ms (dropout 0: {fwd0_ms:.4f})", flush=True)
+              f"library backward {lib:.4f} ms, bound {b:.5f} ms ({by}); dynamic shared memory "
+              f"{smem} B a block, keep-bit workspace {work} B; forward kernel {fwd_ms:.4f} ms "
+              f"(dropout 0: {fwd0_ms:.4f}), library forward {fwd_lib:.4f} ms, forward bound "
+              f"{fb:.5f} ms ({fby})", flush=True)
         del q, k, v, do, bias, lse, qt, kt, vt, out, dot, mask4
     row = k3_rows["cross"]
     timings.insert(2, ("flash_bwd", "faceformer_tpu_torch/csrc/flash_bwd.cu",

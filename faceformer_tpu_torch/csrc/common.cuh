@@ -129,34 +129,6 @@ __device__ __forceinline__ void dropout_keep_rows(const Dropout& dr, int n, int 
   keep[3] = (odd ? r.w : g1) < dr.threshold;
 }
 
-// The transposed tile (16 keys x 8 queries) holds, in lane (g, tig), queries
-// i and i + 1 of keys ka = base + g and kb = ka + 8 (base a multiple of 4):
-// the four lanes g = 4m + c, c = 0..3, hold the four keys of one group, for
-// ka and for kb. They need four Philox calls between them, (ka, i),
-// (ka, i + 1), (kb, i), (kb, i + 1); lane c draws call c and the four lanes
-// pass the words round, so a tile costs each lane one call, not four. Every
-// lane of the warp must call it. keep[0..1]: key ka, queries i, i + 1;
-// keep[2..3]: kb.
-__device__ __forceinline__ void dropout_keep_keys(const Dropout& dr, int n, int h, int i, int ka,
-                                                  int kb, int lane, bool* keep) {
-  const int c = (lane >> 2) & 3;
-  const uint4 r = dropout_bits4(dr, n, h, i + (c & 1), c < 2 ? ka : kb);
-#pragma unroll
-  for (int round = 0; round < 4; ++round) {
-    // this lane reads call (c + round) % 4; the lane that reads from it is
-    // lane (c - round) % 4 and wants that lane's own word
-    const int want = (c - round) & 3, call = (c + round) & 3;
-    const uint32_t send = want == 0 ? r.x : want == 1 ? r.y : want == 2 ? r.z : r.w;
-    const uint32_t got = round == 0 ? send
-                                    : __shfl_sync(0xffffffffu, send, (lane & ~12) | (call << 2));
-    const bool k = got < dr.threshold;
-    if (call == 0) keep[0] = k;
-    if (call == 1) keep[1] = k;
-    if (call == 2) keep[2] = k;
-    if (call == 3) keep[3] = k;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Tensor-core helpers: mma.sync m16n8k16 (bf16 inputs, fp32 accumulation).
 // Fragment layout (g = lane / 4, tig = lane % 4): A (16x16, row-major) a0 =
@@ -180,6 +152,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies into shared memory (cp.async) and ldmatrix.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8m..8m+7 give the row
+// addresses of matrix m, and r[m] is the lane's fragment of matrix m: row
+// lane / 4, columns 2 (lane % 4) and + 1 (with .trans: of the transpose).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 // x = hi + mid + lo with each term a bf16 value; the remainder is below

@@ -13,28 +13,31 @@
 // the same bits the forward drew for this seed. Masked entries give
 // exp(NEG - lse) = 0 exactly, never NaN.
 //
-// What bounds it here: at the training shapes (bf16, hd = 64) the
-// decoder-self call moves ~2 GB for 0.23 TFLOP and is memory-bound; the
-// cross-attention call (8,640 queries against 220 keys per (sample, head))
-// does 0.31 TFLOP against 0.85 GB and is operation-bound.
+// What bounds it here, at the training shapes (bf16, hd = 64, N = 32):
+// the encoder call (220 x 220 per (sample, head)) and the decoder-self call
+// (6,912 x 8 pairs of 40 x 40, causal) are byte-bound (0.015 and 0.59 ms of
+// HBM traffic at least); the cross-attention call (8,640 queries against
+// 220 keys per pair) does 0.31 TFLOP against 0.85 GB and is
+// operation-bound. The kernels run eight products where five are the
+// minimum, and with dropout one Philox call per four elements in each.
 //
 // Design. The TPU grid revisits one dk/dv block for every query block in
 // order; CUDA blocks run in no order, so the backward is two kernels and
 // no atomics, which makes every gradient bitwise repeatable:
-//   1. dq: a block owns query rows and holds the whole key side (Sk <= a
-//      few hundred on every path) in shared memory, so delta is an exact
-//      row sum as in the Pallas kernel. It also writes delta (N, Sq, H).
+//   1. dq: a block holds the whole key side of its (sequence, head) (Sk <=
+//      a few hundred on every path) in shared memory, loaded once, and
+//      walks a share of the query tiles, so delta is an exact row sum as in
+//      the Pallas kernel. It also writes delta (N, Sq, H).
 //   2. dk, dv: a block is stationary over a tile of keys and walks every
 //      query row in a fixed order, reading delta; the accumulators stay in
-//      registers (a (sequence, head)'s K, V, dK and dV in fp32 would not
-//      fit in shared memory beside the q/do tiles).
-// Both recompute s and dp, so the backward runs eight products where five
-// are the minimum. fp32 inputs (and head dims other than 64) run the
-// CUDA-core kernels, everything in fp32 after the loads as the Pallas
-// kernel. bf16 at hd = 64 and Sk <= 256 runs the mma.sync kernels: s and
-// dp accumulate in fp32 from bf16 fragments, the softmax algebra is fp32,
-// and ds, p_used are rounded to bf16 for the three products that follow,
-// where the Pallas kernel keeps fp32.
+//      registers.
+// Both recompute s and dp. fp32 inputs (and head dims other than 64) run
+// the CUDA-core kernels, everything in fp32 after the loads as the Pallas
+// kernel. bf16 at hd = 64 and Sk <= 256 runs the mma.sync kernels of
+// flash_bwd_tc.cuh (ring, key tiling and splits are described there): s
+// and dp accumulate in fp32 from bf16 fragments, the softmax algebra is
+// fp32, and ds, p_used are rounded to bf16 for the three products that
+// follow, where the Pallas kernel keeps fp32.
 
 #include "common.cuh"
 
@@ -297,10 +300,16 @@ inline cudaError_t launch_bwd_cores(const T* q, const T* k, const T* v, const fl
 
 #include "flash_bwd_tc.cuh"
 
+// The call runs the tensor-core kernels of flash_bwd_tc.cuh.
+static bool bwd_tensor_cores(int dtype, int Sk, int hd) {
+  return dtype == FF_BFLOAT16 && hd == ff::BT_HD && Sk <= ff::BT_MAX_SK;
+}
+
 FF_EXPORT int flash_bwd(int dtype, const void* q, const void* k, const void* v, const void* bias,
                         const void* lse, const void* dout, int N, int Sq, int Sk, int H, int hd,
                         float scale, int causal, unsigned long long seed, unsigned int threshold,
-                        float drop_scale, void* dq, void* dk, void* dv, void* delta, void* stream) {
+                        float drop_scale, void* dq, void* dk, void* dv, void* delta,
+                        void* keep_bits, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const float*>(bias);
   auto l = static_cast<const float*>(lse);
@@ -316,22 +325,31 @@ FF_EXPORT int flash_bwd(int dtype, const void* q, const void* k, const void* v, 
     auto qb = static_cast<const bf16*>(q), kb = static_cast<const bf16*>(k);
     auto vb = static_cast<const bf16*>(v), db = static_cast<const bf16*>(dout);
     auto dqb = static_cast<bf16*>(dq), dkb = static_cast<bf16*>(dk), dvb = static_cast<bf16*>(dv);
-    if (hd == ff::BT_HD && Sk <= ff::BT_MAX_SK)
-      return ff::launch_bwd_tc(qb, kb, vb, b, l, db, dqb, dkb, dvb, dl, N, Sq, Sk, H, scale,
-                               causal, drop, st);
+    if (bwd_tensor_cores(dtype, Sk, hd))
+      return ff::launch_bwd_tc(qb, kb, vb, b, l, db, dqb, dkb, dvb, dl,
+                               static_cast<uint32_t*>(keep_bits), N, Sq, Sk, H, scale, causal,
+                               drop, st);
     return ff::launch_bwd_cores<bf16>(qb, kb, vb, b, l, db, dqb, dkb, dvb, dl, N, Sq, Sk, H, hd,
                                       scale, causal, drop, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory the call's kernels need (the larger of the two), so the
-// wrapper can refuse a key length that does not fit.
+// Dynamic shared memory the call's kernels need (the larger of the two),
+// so the wrapper can refuse a key length that does not fit.
 FF_EXPORT size_t flash_bwd_smem_bytes(int dtype, int Sk, int hd) {
-  if (dtype == FF_BFLOAT16 && hd == ff::BT_HD && Sk <= ff::BT_MAX_SK)
-    return ff::bwd_tc_smem_bytes(Sk);
+  if (bwd_tensor_cores(dtype, Sk, hd)) return ff::bwd_tc_smem_bytes(Sk);
   const size_t a = ff::bwd_dq_smem_bytes(Sk, hd), b = ff::bwd_dkv_smem_bytes(hd);
   return a > b ? a : b;
+}
+
+// Bytes of the keep-bit buffer the call needs (keep_bits; 0: none): the
+// tensor-core kernels with dropout pass the dq kernel's keep bits on.
+FF_EXPORT size_t flash_bwd_workspace_bytes(int dtype, int N, int Sq, int Sk, int H, int hd,
+                                           int dropout) {
+  if (bwd_tensor_cores(dtype, Sk, hd) && dropout)
+    return (size_t)N * H * ((Sq + 15) / 16) * ff::BT_KEEP_GROUP * sizeof(uint32_t);
+  return 0;
 }
 
 FF_EXPORT int flash_bwd_max_head_dim() { return ff::KV_MAX_HD; }

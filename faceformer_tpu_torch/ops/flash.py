@@ -277,13 +277,20 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
     _check_smem("flash_bwd", "flash_bwd_smem_bytes", dt, sk, hd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((n, sq, h), dtype=torch.float32, device=q.device)
+    # the keep bits the dq kernel draws and the dk/dv kernel reads
+    lib.flash_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 7
+    lib.flash_bwd_workspace_bytes.restype = ctypes.c_size_t
+    ws_bytes = lib.flash_bwd_workspace_bytes(dt, n, sq, sk, h, hd, int(threshold != 0))
+    keep_bits = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device) if ws_bytes else None
     fn = _build.bind("flash_bwd", "flash_bwd", [ctypes.c_int] + [ctypes.c_void_p] * 6
                      + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGS
-                     + [ctypes.c_void_p] * 5)
+                     + [ctypes.c_void_p] * 6)
     status = fn(dt, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
                 _build.ptr(lse), _build.ptr(dout), n, sq, sk, h, hd, hd ** -0.5, int(causal),
                 int(seed), threshold, dropout_scale(dropout_rate), _build.ptr(dq), _build.ptr(dk),
-                _build.ptr(dv), _build.ptr(delta), _build.stream_ptr(q.device))
+                _build.ptr(dv), _build.ptr(delta),
+                ctypes.c_void_p(None if keep_bits is None else keep_bits.data_ptr()),
+                _build.stream_ptr(q.device))
     _build.check("flash_bwd", status, "flash_bwd launch")
     ops.LAUNCHES["flash_bwd"] += 1
     return dq, dk, dv

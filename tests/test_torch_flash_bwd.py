@@ -42,10 +42,11 @@ def t(*arrays):
     return tuple(torch.as_tensor(a) for a in arrays)
 
 
+@pytest.mark.parametrize("sq", [13, 300])  # 300: many query rows per key, as cross-attention
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
-def test_bwd_plain_matches_pallas_vjp(causal, ragged):
-    q, k, v, bias = case(ragged=ragged)
+def test_bwd_plain_matches_pallas_vjp(causal, ragged, sq):
+    q, k, v, bias = case(sq=sq, ragged=ragged)
 
     def loss(q_, k_, v_):
         out = jax_flash_attention(q_, k_, v_, jnp.asarray(bias.numpy()), causal=causal,

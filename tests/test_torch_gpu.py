@@ -112,9 +112,13 @@ def rel_err(got, want):
 
 # the three training regimes, small and at the full `ours` width (8 heads
 # of 64; a few sequences each): short causal decoder rows, the encoder, and
-# the anchor-folded cross-attention
+# the anchor-folded cross-attention; then the backward's tiling edges: a
+# query length that leaves the ring a partial last tile against a key
+# length off the 16-key grid, the largest key side, and short causal rows
+# off both grids
 FLASH_SHAPES = [(200, 12, 12, True), (3, 50, 50, False), (2, 300, 90, False),
-                (64, 40, 40, True), (2, 220, 220, False), (1, 8640, 220, False)]
+                (64, 40, 40, True), (2, 220, 220, False), (1, 8640, 220, False),
+                (3, 1000, 37, False), (2, 4099, 256, False), (64, 37, 37, True)]
 
 
 def test_keep_mask_on_card_equals_plain(cuda_device):
