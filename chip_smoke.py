@@ -13,8 +13,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
      affine ignored); the flash forward with in-kernel dropout and the
      flash backward at the three training shapes (encoder, causal decoder
      self-attention, anchor-folded cross-attention), with the keep mask
-     held bit for bit, repeatability, and the backward's bf16 gates against
-     planted faults;
+     held bit for bit, repeatability, and the forward's and the backward's
+     bf16 gates against planted faults;
   3. the main paths. Serving: ``predict_faces`` on 20 seeded random
      wireframes through a seeded random-init SurfaceFormerParallel (biases
      and LayerNorms jittered off their init values) in bf16 with early_stop
@@ -30,8 +30,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
      each configuration implies; samples/s, the step split into forward,
      backward and optimizer, peak memory, and one step under
      torch.profiler;
-  4. per-kernel timing at the main paths' shapes: kernel, plain version,
-     one-call library yardstick, and the card's lower bound;
+  4. per-kernel timing at the main paths' shapes (K2 at each of its five:
+     the serving encoder, the reference engine's decoder, and the three
+     training calls): kernel, plain version, one-call library yardstick, and
+     the card's lower bound;
   5. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
@@ -65,13 +67,21 @@ def nvidia_smi() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+SPIN_CYCLES = 35_000_000  # ~20 ms of the card's clock
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of fn. A spin kernel holds the card
+    while the host queues the calls, so the events time the card's work
+    back to back and not the host's launch overhead (which exceeds a small
+    call's kernel)."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -170,6 +180,10 @@ def check_pointer(rng, dev, n, r, s, e):
     return out["bf16_err"]
 
 
+# K2's bf16 gate: out and lse within 2e-2 absolute of the plain version.
+K2_BF16_TOL = 2e-2
+
+
 def check_flash(rng, dev, n, sq, sk, h, hd, label, prefix=False, causal=False):
     import torch
     from faceformer_tpu_torch.ops.flash import flash_attention_fwd, padding_mask_bias
@@ -180,7 +194,7 @@ def check_flash(rng, dev, n, sq, sk, h, hd, label, prefix=False, causal=False):
         mask = padding(rng, n, sk, dev)
     bias = padding_mask_bias(mask.contiguous())
     errs = {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, K2_BF16_TOL)):
         q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
                    for shape in ((n, sq, h, hd), (n, sk, h, hd), (n, sk, h, hd)))
         out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, causal=causal)
@@ -193,7 +207,7 @@ def check_flash(rng, dev, n, sq, sk, h, hd, label, prefix=False, causal=False):
         errs[str(dtype)] = max(e_out, e_lse)
     print(f"[2] K2 flash_fwd {label} q({n},{sq},{h},{hd}) k({n},{sk}) causal={causal}: "
           f"max err fp32 {errs['torch.float32']:.3g} (<=1e-4), bf16 "
-          f"{errs['torch.bfloat16']:.3g} (<=2e-2)", flush=True)
+          f"{errs['torch.bfloat16']:.3g} (<={K2_BF16_TOL})", flush=True)
     return errs["torch.bfloat16"]
 
 
@@ -313,6 +327,41 @@ def k3_faults(causal):
     return faults
 
 
+def k2_faults(causal):
+    """Kernel faults K2's bf16 gate must reject, each made by editing what
+    the kernel is given while the plain version keeps the truth. Each entry:
+    (label, dropout rate, edit(args) -> (args, fix(out, lse)))."""
+    import torch
+
+    def scale_doubled(a):
+        # a kernel whose scale is twice the true one computes what the sound
+        # kernel computes from 2q
+        return {**a, "q": a["q"] * 2}, None
+
+    def wrong_head(a):
+        return {**a, "v": a["v"].roll(1, dims=2).contiguous()}, None
+
+    def neighbour_bias(a):
+        return {**a, "bias": a["bias"].roll(1, dims=0).contiguous()}, None
+
+    def seed_plus_one(a):
+        return {**a, "seed": a["seed"] + 1}, None
+
+    def causal_off_by_one(a):
+        # one dummy query row in front shifts every real row down by one, so
+        # the kernel masks keys j > i + 1 where it should mask j > i
+        q = torch.cat([torch.zeros_like(a["q"][:, :1]), a["q"]], dim=1).contiguous()
+        return {**a, "q": q}, lambda out, lse: (out[:, 1:], lse[:, 1:])
+
+    faults = [("q scaled by 2", TRAIN_RATE, scale_doubled),
+              ("v of the wrong head", TRAIN_RATE, wrong_head),
+              ("the neighbouring sequence's bias", TRAIN_RATE, neighbour_bias),
+              ("forward given seed+1", TRAIN_RATE, seed_plus_one)]
+    if causal:
+        faults.append(("causal off by one", 0.0, causal_off_by_one))
+    return faults
+
+
 def check_flash_train(rng, dev, label, n_full, sq, sk, causal, n, h, hd):
     """K2 with dropout and K3 against their plain versions at one training
     shape, fp32 and bf16, dropout 0 and TRAIN_RATE. Returns the largest
@@ -340,6 +389,7 @@ def check_flash_train(rng, dev, label, n_full, sq, sk, causal, n, h, hd):
     worst_fwd = worst_bwd = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
+        sound = {}  # this dtype's forward error by dropout rate
         q, k, v, do, bias = train_attention_inputs(rng, dev, dtype, label, n, sq, sk, h, hd)
         for rate in (0.0, TRAIN_RATE):
             kw = dict(causal=causal, dropout_rate=rate, seed=seed)
@@ -347,11 +397,12 @@ def check_flash_train(rng, dev, label, n_full, sq, sk, causal, n, h, hd):
             out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
             e_out = float((out.float() - out_p.float()).abs().max())
             e_lse = float((lse - lse_p).abs().max())
-            tol = 2e-2 if bf16 else 1e-4
+            tol = K2_BF16_TOL if bf16 else 1e-4
             print(f"[2] K2 flash_fwd {shape} {dtype} dropout {rate}: out err {e_out:.3g}, "
                   f"lse err {e_lse:.3g} (<= {tol})", flush=True)
             if not (e_out <= tol and e_lse <= tol):
                 fail(f"K2 {label} {dtype} dropout {rate}: out {e_out:.3g}, lse {e_lse:.3g}")
+            sound[rate] = max(e_out, e_lse)
             if rate:
                 kept, live = kernel_keep_mask(q, k, v, bias, causal, seed)
                 wrong = int(((kept != plain_mask) & live).sum())
@@ -390,6 +441,23 @@ def check_flash_train(rng, dev, label, n_full, sq, sk, causal, n, h, hd):
                     fail(f"K3 {label} {dtype}: another seed gave the same dv")
             del got, want, again
         if bf16:
+            for name, rate, edit in k2_faults(causal):
+                args = dict(q=q, k=k, v=v, bias=bias, causal=causal, dropout_rate=rate,
+                            seed=seed)
+                out_p, lse_p = flash_attention_fwd(**args, impl="plain")
+                edited, fix = edit(args)
+                out, lse = flash_attention_fwd(**edited)
+                if fix is not None:
+                    out, lse = fix(out, lse)
+                e = max(float((out.float() - out_p.float()).abs().max()),
+                        float((lse - lse_p).abs().max()))
+                caught = e > K2_BF16_TOL
+                print(f"[2] K2 bf16 fault '{name}' {label} dropout {rate}: err {e:.3g} (sound "
+                      f"kernel {sound[rate]:.3g}, gate {K2_BF16_TOL}); "
+                      f"{'rejected' if caught else 'PASSES THE GATE'}", flush=True)
+                if not caught:
+                    fail(f"K2 bf16 gate passes a kernel with '{name}' at {label}")
+                del out, lse, out_p, lse_p
             for name, rate, edit in k3_faults(causal):
                 args = dict(q=q, k=k, v=v, bias=bias, dout=do, causal=causal,
                             dropout_rate=rate, seed=seed)
@@ -1062,18 +1130,38 @@ def main() -> int:
                     time_ms(lambda: pointer_argmax(rows, memory, mask, impl="plain")),
                     time_ms(library_pointer), b, fl))
 
-    q, k, v = (torch.as_tensor(rng.standard_normal((n, s, h, hd)), dtype=bf, device=dev)
-               for _ in range(3))
-    bias = padding_mask_bias(mask)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask4 = bias[:, None, None, :].to(bf)
-    b, fl = bound_ms(nbytes(q, k, v, bias, q) + n * s * h * 4, 4.0 * n * h * s * s * hd, bf)
+    # K2 in serving, no dropout: the encoder (its row in the summary) and the
+    # reference engine's decoder self-attention (it decodes N=4) over a live
+    # prefix of 18
+    flash_lib = _build.load("flash")
+    flash_lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
+    flash_lib.flash_smem_bytes.restype = ctypes.c_size_t
+    k2_rows = {}
+    for label, n2, sq in (("encoder-serving", n, s), ("reference-decoder", 4 * f, 37)):
+        q, k, v = (torch.as_tensor(rng.standard_normal((n2, sq, h, hd)), dtype=bf, device=dev)
+                   for _ in range(3))
+        key_mask = (mask if label == "encoder-serving" else
+                    torch.as_tensor(np.arange(sq)[None, :] > 17, device=dev).expand(n2, sq))
+        bias = padding_mask_bias(key_mask.contiguous())
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask4 = bias[:, None, None, :].to(bf)
+        b, fl = bound_ms(nbytes(q, k, v, bias, q) + n2 * sq * h * 4,
+                         4.0 * n2 * h * sq * sq * hd, bf)
+        row = dict(ms=time_ms(lambda: flash_attention_fwd(q, k, v, bias)),
+                   plain_ms=time_ms(lambda: flash_attention_fwd(q, k, v, bias, impl="plain")),
+                   library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=mask4)), bound_ms=b, bound_by=fl,
+                   smem_bytes=flash_lib.flash_smem_bytes(1, sq, hd))
+        k2_rows[label] = row
+        print(f"[4] flash_fwd {label} q({n2},{sq},{h},{hd}) k({n2},{sq}) bf16: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {b:.5f} ms ({fl}); dynamic shared memory "
+              f"{row['smem_bytes']} B a block", flush=True)
+        del q, k, v, bias, qt, kt, vt, mask4
+    row = k2_rows["encoder-serving"]
     timings.append(("flash_fwd", "faceformer_tpu_torch/csrc/flash.cu",
-                    "faceformer_tpu/ops/flash.py:252",
-                    time_ms(lambda: flash_attention_fwd(q, k, v, bias)),
-                    time_ms(lambda: flash_attention_fwd(q, k, v, bias, impl="plain")),
-                    time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask4)), b, fl))
+                    "faceformer_tpu/ops/flash.py:252", row["ms"], row["plain_ms"],
+                    row["library_ms"], row["bound_ms"], row["bound_by"]))
 
     step = 17
     inp = decode_inputs(model, mc, rng, dev, bf, n, step)
@@ -1131,15 +1219,18 @@ def main() -> int:
         smem = k3_lib.flash_bwd_smem_bytes(1, sk, hd)
         work = k3_lib.flash_bwd_workspace_bytes(1, n3, sq, sk, h, hd, 1)
         k3_rows[label] = dict(ms=ms, ms_no_dropout=ms0, plain_ms=plain, library_ms=lib,
-                              bound_ms=b, bound_by=by, fwd_ms=fwd_ms, fwd_ms_no_dropout=fwd0_ms,
-                              fwd_bound_ms=fb, fwd_bound_by=fby, fwd_library_ms=fwd_lib,
-                              smem_bytes=smem, workspace_bytes=work)
+                              bound_ms=b, bound_by=by, smem_bytes=smem, workspace_bytes=work)
+        k2_rows[label] = dict(ms=fwd_ms, ms_no_dropout=fwd0_ms, library_ms=fwd_lib,
+                              bound_ms=fb, bound_by=fby,
+                              smem_bytes=flash_lib.flash_smem_bytes(1, sk, hd))
         print(f"[4] flash_bwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
               f"{TRAIN_RATE}: kernel {ms:.4f} ms (dropout 0: {ms0:.4f}), plain {plain:.4f} ms, "
               f"library backward {lib:.4f} ms, bound {b:.5f} ms ({by}); dynamic shared memory "
-              f"{smem} B a block, keep-bit workspace {work} B; forward kernel {fwd_ms:.4f} ms "
-              f"(dropout 0: {fwd0_ms:.4f}), library forward {fwd_lib:.4f} ms, forward bound "
-              f"{fb:.5f} ms ({fby})", flush=True)
+              f"{smem} B a block, keep-bit workspace {work} B", flush=True)
+        print(f"[4] flash_fwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
+              f"{TRAIN_RATE}: kernel {fwd_ms:.4f} ms (dropout 0: {fwd0_ms:.4f}), library "
+              f"{fwd_lib:.4f} ms (same mask and dropout), bound {fb:.5f} ms ({fby}); dynamic "
+              f"shared memory {k2_rows[label]['smem_bytes']} B a block", flush=True)
         del q, k, v, do, bias, lse, qt, kt, vt, out, dot, mask4
     row = k3_rows["cross"]
     timings.insert(2, ("flash_bwd", "faceformer_tpu_torch/csrc/flash_bwd.cu",
@@ -1156,7 +1247,9 @@ def main() -> int:
          "launches": total[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
          "bound_ms": bnd, "bound_by": by, "library_ms": lib}
         for name, src, rep, ms, plain, lib, bnd, by in timings]}
-    # K3's entry is the cross-attention call; the other two shapes ride along
+    # K2's entry is the serving encoder call and K3's the cross-attention
+    # call; their other shapes ride along
+    summary["kernels"][1]["shapes"] = k2_rows
     summary["kernels"][2]["shapes"] = k3_rows
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)

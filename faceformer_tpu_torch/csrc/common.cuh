@@ -200,10 +200,25 @@ __device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo
   lo = round_to<__nv_bfloat16>(r - mid);
 }
 
+// The fp32 values of an A fragment (x[i] = the register pair a[i]) scaled
+// by `scale` and split into three bf16 terms: a[0..3] hi, a[4..7] mid,
+// a[8..11] lo.
+__device__ __forceinline__ void split3_fragment(const float2* x, float scale, uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float h0, m0, l0, h1, m1, l1;
+    split3(x[i].x * scale, h0, m0, l0);
+    split3(x[i].y * scale, h1, m1, l1);
+    a[i] = pack_bf16(h0, h1);
+    a[4 + i] = pack_bf16(m0, m1);
+    a[8 + i] = pack_bf16(l0, l1);
+  }
+}
+
 // The A fragment (rows ra, rb; cols d..d+1 and d+8..d+9) of a row-major
 // operand read straight from global memory, rows past the end as zeros:
-// a[0..3] for bf16, or a[0..11] (three bf16 terms, split3) for fp32 scaled
-// by `scale`.
+// a[0..3] for bf16, or a[0..11] (three bf16 terms, split3_fragment) for
+// fp32 scaled by `scale`.
 template <typename TA>
 __device__ __forceinline__ void load_a_fragment(const TA* pa, const TA* pb, bool va, bool vb,
                                                 int d, float scale, uint32_t* a) {
@@ -218,15 +233,7 @@ __device__ __forceinline__ void load_a_fragment(const TA* pa, const TA* pb, bool
                          vb ? *reinterpret_cast<const float2*>(pb + d) : zero,
                          va ? *reinterpret_cast<const float2*>(pa + d + 8) : zero,
                          vb ? *reinterpret_cast<const float2*>(pb + d + 8) : zero};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float h0, m0, l0, h1, m1, l1;
-      split3(x[i].x * scale, h0, m0, l0);
-      split3(x[i].y * scale, h1, m1, l1);
-      a[i] = pack_bf16(h0, h1);
-      a[4 + i] = pack_bf16(m0, m1);
-      a[8 + i] = pack_bf16(l0, l1);
-    }
+    split3_fragment(x, scale, a);
   }
 }
 

@@ -11,17 +11,29 @@
 // common.cuh; threshold 0 means no dropout and runs the dropout-free
 // instantiation.
 //
-// What bounds it here: the encoder call (N=20, S=220, H=8, hd=64, bf16)
-// moves ~18 MB (5.4 us at 3.35 TB/s) for ~1.6 GFLOP, so it is memory-bound
-// in principle. Design: every key side on the serve path has Sk <= 220, so
-// one (sequence, head)'s K and V sit in shared memory whole and the softmax
-// is exact, not online, as in the Pallas kernel. bf16 at hd = 64 runs the
-// tensor-core kernel of attention.cuh (16 query rows per warp with their
-// score rows in registers, 64 rows per block); fp32 and other head dims run
-// its CUDA-core kernel. Blocks cover the query rows of one (sequence,
-// head), which serves both regimes: the long encoder and cross-attention
-// query sides split into many blocks, and each of the reference engine's
-// short decoder sequences (<= 37 rows) is one block.
+// What bounds it here: memory. At the training step's cross-attention
+// (q (32, 8640, 8, 64) against k, v (32, 220, 8, 64), bf16) q and out are
+// 283 MB each and K, V, lse and the bias ~16 MB more: ~0.59 GB, 0.176 ms
+// at 3.35 TB/s, against ~100 GFLOP of products (0.1 ms on the bf16 tensor
+// cores). The decoder self-attention (6,912 sequences of 40) moves 1.13
+// GB (0.338 ms); the serving encoder (N=20, S=220) ~18 MB (5.4 us).
+//
+// Design: every key side on the main paths has Sk <= 220, so one
+// (sequence, head)'s K and V sit in shared memory whole and the softmax is
+// exact, not online, as in the Pallas kernel. bf16 at hd = 64 runs the
+// tensor-core kernel of attention.cuh; fp32 and other head dims run its
+// CUDA-core kernel. The tensor-core kernel reads each byte of the call
+// once from device memory: a block copies its (sequence, head)'s K, V and
+// bias into shared memory once by cp.async and walks that pair's query
+// tiles through a cp.async ring (the next tile's copy under this tile's
+// products), so the key side is not re-staged for every 64 query rows
+// (~2 GB of L2 traffic at the cross shape when it was). V's B fragments
+// come by ldmatrix.trans from V as it lies, not from a transposed copy
+// made by scalar stores. Sequences of one tile (the decoder's 37-40 rows)
+// are walked a pair at a time, each ring stage holding a whole pair, so a
+// block's next key side arrives while it computes the current one. The
+// output leaves through shared memory as 16-byte stores. Blocks: the
+// card's resident count, so one wave covers the call.
 
 #include "attention.cuh"
 
@@ -57,9 +69,12 @@ FF_EXPORT int flash_fwd(int dtype, const void* q, const void* k, const void* v,
                                st);
 }
 
+// The dynamic shared memory of the kernel that takes (dtype, Sk, hd): the
+// tensor-core kernel's larger walk, or the CUDA-core kernel's.
 FF_EXPORT size_t flash_smem_bytes(int dtype, int Sk, int hd) {
-  return dtype == FF_FLOAT32 ? ff::attention_smem_bytes<float>(Sk, hd)
-                             : ff::attention_smem_bytes<__nv_bfloat16>(Sk, hd);
+  if (dtype == FF_FLOAT32) return ff::attention_smem_bytes<float>(Sk, hd);
+  return ff::takes_tc(Sk, hd) ? ff::tc_smem_for<__nv_bfloat16>(Sk)
+                              : ff::attention_smem_bytes<__nv_bfloat16>(Sk, hd);
 }
 
 // The keep mask alone, as bytes (N, H, Sq, Sk): what both flash kernels apply

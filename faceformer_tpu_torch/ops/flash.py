@@ -227,6 +227,8 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
     for t in (q, k, v, bias):
         if not t.is_contiguous():
             raise ValueError("flash_attention needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention needs q, k and v on 16-byte boundaries")
     dt = _DTYPES[q.dtype]
     _check_smem("flash", "flash_smem_bytes", dt, sk, hd)
     out = torch.empty_like(q)

@@ -77,12 +77,23 @@ def test_pointer_kernel_on_card(cuda_device, dtype):
         assert not ((got != want) & clear).any()
 
 
+# (n, sq, sk, causal, hd). The tensor-core kernel (bf16, hd = 64, Sk <= 256)
+# walks pairs when Sq <= 64 and query tiles otherwise: few pairs on many
+# tiles (splits > 1, a ragged last tile), key lengths of one key, off the
+# 16-key grid and the largest; hd = 32 (d = 256 over 8 heads, as in
+# configs/step-native.yml) runs the CUDA-core kernel in both dtypes.
+FWD_SHAPES = [(3, 50, 50, False, 64), (3, 50, 50, True, 64), (200, 12, 12, False, 64),
+              (2, 300, 90, False, 64), (1, 1000, 220, False, 64), (2, 3000, 220, False, 64),
+              (3, 50, 1, False, 64), (3, 100, 17, True, 64), (2, 300, 256, False, 64),
+              (3, 50, 50, False, 32), (2, 300, 90, True, 32)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,sq,sk,causal", [(3, 50, 50, False), (3, 50, 50, True),
-                                            (200, 12, 12, False), (2, 300, 90, False)])
-def test_flash_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal):
+@pytest.mark.parametrize("n,sq,sk,causal,hd", FWD_SHAPES)
+def test_flash_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal, hd):
+    """K2 against its plain version, and bitwise repeatable without dropout."""
     rng = np.random.default_rng(4)
-    h, hd = 4, 64
+    h = 8 if hd == 32 else 4
     q = torch.as_tensor(rng.standard_normal((n, sq, h, hd)), dtype=dtype, device=cuda_device)
     k, v = (torch.as_tensor(rng.standard_normal((n, sk, h, hd)), dtype=dtype,
                             device=cuda_device) for _ in range(2))
@@ -92,6 +103,8 @@ def test_flash_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal):
     out_p, lse_p = flash_attention_fwd(q, k, v, bias, causal=causal, impl="plain")
     assert float((out.float() - out_p.float()).abs().max()) <= tol
     assert float((lse - lse_p).abs().max()) <= tol
+    again, lse_again = flash_attention_fwd(q, k, v, bias, causal=causal)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
 
 
 def flash_case(dev, dtype, n, sq, sk, seed=7, h=4, hd=64):
