@@ -5,14 +5,16 @@
 
 Phases (each prints one or more lines; any failure exits non-zero):
   1. device: the card, its power limit, and the nvcc build of every kernel
-     with ptxas's register / shared-memory / spill lines;
+     with ptxas's register / shared-memory / spill lines, and the count of
+     wgmma (HGMMA) instructions in the fused decode step's library;
   2. kernels against their plain PyTorch versions at the full `ours` width
      (configs/ours.yml: d=512, 8 heads, FFN 1024, 6+6 layers, L=216, T=37),
      in fp32 and bf16: the serving kernels at batch N=20, K4's bf16 gates
      also against known faults (a bias dropped or misread, a LayerNorm
-     affine ignored); the flash forward with in-kernel dropout and the
-     flash backward at the three training shapes (encoder, causal decoder
-     self-attention, anchor-folded cross-attention), with the keep mask
+     affine ignored, a GEMM's k tile lost or n tiles swapped); the flash
+     forward with in-kernel dropout and the flash backward at the three
+     training shapes (encoder, causal decoder self-attention,
+     anchor-folded cross-attention), with the keep mask
      held bit for bit, repeatability, and the forward's and the backward's
      bf16 gates against planted faults;
   3. the main paths. Serving: ``predict_faces`` on 20 seeded random
@@ -33,7 +35,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
   4. per-kernel timing at the main paths' shapes (K2 at each of its five:
      the serving encoder, the reference engine's decoder, and the three
      training calls): kernel, plain version, one-call library yardstick, and
-     the card's lower bound;
+     the card's lower bound; and K4's GEMM phase alone (the 49 products of
+     one step, each kind held against its plain version) beside addmm;
   5. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
@@ -46,6 +49,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -88,6 +92,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def hgmma_count(library: str) -> int:
+    """HGMMA (wgmma) instructions in a built library's SASS."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", library], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -527,8 +539,12 @@ K4_PTR_MEAN = 5e-3   # 0.0035  0.0055 (v bias dropped); 0.0071 for the cross q
 def k4_faults():
     """Kernel faults the bf16 gates must reject, each made by editing the
     packed weights the kernel reads (the plain step keeps the true ones):
-    a bias read from the wrong row of the per-layer table or dropped, and
-    a LayerNorm scale or bias ignored."""
+    a bias read from the wrong row of the per-layer table or dropped, a
+    LayerNorm scale or bias ignored, and two GEMM tiling errors: a k tile
+    lost (the last 32 input rows of a weight read as zeros) and an n tile
+    written to the wrong place (two neighbouring 8-column groups of a
+    weight's output swapped)."""
+    import torch
     from faceformer_tpu_torch.ops import decode_step as d
 
     def edit(layer, row, value):
@@ -540,6 +556,13 @@ def k4_faults():
     def final_scale_ignored(packed):
         packed["final_norm"][0] = 1.0
 
+    def lost_k_tile(packed):  # FFN2 weight (FF in, E out), layer 2
+        packed["ffn_w2"][2, -32:] = 0.0
+
+    def swapped_n_tiles(packed):  # v weight (E in, E out), layer 4: columns 160-175
+        w = packed["w_mats"][4, 2]
+        w[:, 160:176] = torch.cat([w[:, 168:176], w[:, 160:168]], dim=1)
+
     return (("q bias read from the k row, layer 0", edit(0, d._BQ, d._BK)),
             ("k bias dropped, layer 2", edit(2, d._BK, 0.0)),
             ("v bias dropped, layer 5", edit(5, d._BV, 0.0)),
@@ -549,7 +572,9 @@ def k4_faults():
             ("LN1 scale ignored, layer 0", edit(0, d._N1S, 1.0)),
             ("LN2 bias ignored, layer 3", edit(3, d._N2B, 0.0)),
             ("LN3 bias ignored, layer 5", edit(5, d._N3B, 0.0)),
-            ("final LN scale ignored", final_scale_ignored))
+            ("final LN scale ignored", final_scale_ignored),
+            ("FFN2 k tile lost (last 32 input rows zeroed), layer 2", lost_k_tile),
+            ("v n tiles swapped (8-column groups 160-167, 168-175), layer 4", swapped_n_tiles))
 
 
 def k4_plain(inp, step, num_head):
@@ -668,6 +693,92 @@ def check_decode_step(model, cfg, rng, dev, n, steps=(1, 17, 36)):
     return worst
 
 
+def k4_gemm_phase(inp, mc, rng, dev):
+    """K4's GEMM phase alone: the 49 products of one step (q, k, v, out,
+    cross q, cross out, FFN in and out in each of the 6 layers, then the
+    pointer projection) through the step's GEMM (``decode_gemm``) on the
+    step's own packed weights, each kind first held against its plain
+    version; then the phase's device time beside its bound and beside
+    ``torch.addmm`` (matmul plus bias) at the same shapes, fp32 for the
+    product whose input is fp32. The port never calls addmm."""
+    import torch
+    from faceformer_tpu_torch.ops import decode_step as d
+
+    pk = inp["packed"]
+    r, e, ffd = inp["x"].shape[0], mc.num_model, mc.num_feedforward
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+
+    def act(cols, dtype=bf):
+        return torch.randn((r, cols), generator=gen, device=dev).to(dtype)
+
+    qk, xn, attn, h1, cross, resid = act(e), act(e), act(e), act(ffd), act(e, f32), act(e)
+    # (kind, a, w, bias, epilogue, out dtype)
+    products = []
+    for lyr in range(mc.num_decoder_layers):
+        w, vec = pk["w_mats"][lyr], pk["vecs"][lyr]
+        products += [("q", qk, w[0], vec[d._BQ], "store", bf),
+                     ("k", qk, w[1], vec[d._BK], "store", bf),
+                     ("v", xn, w[2], vec[d._BV], "store", bf),
+                     ("out", attn, w[3], vec[d._BO], "residual", bf),
+                     ("cross q", qk, w[4], vec[d._CBQ], "store", f32),
+                     ("cross out (fp32 input)", cross, w[5], vec[d._CBO], "residual", bf),
+                     ("FFN in", xn, pk["ffn_w1"][lyr], pk["ffn_b1"][lyr], "relu", bf),
+                     ("FFN out", h1, pk["ffn_w2"][lyr], vec[d._FB2], "residual", bf)]
+    products.append(("pointer projection", xn, pk["proj_w"], pk["proj_b"], "store", f32))
+
+    def run(items):
+        for _, a, w, b, epi, out in items:
+            d.decode_gemm(a, w, b, epilogue=epi, resid=resid if epi == "residual" else None,
+                          out_dtype=out)
+
+    lib_w = {id(w): w.float() if a.dtype == f32 else w for _, a, w, _, _, _ in products}
+    lib_b = {id(b): b.to(a.dtype) for _, a, _, b, _, _ in products}
+
+    def run_library(items):
+        for _, a, w, b, _, _ in items:
+            torch.addmm(lib_b[id(b)], a, lib_w[id(w)])
+
+    kinds = {}
+    for item in products:
+        kinds.setdefault(item[0], []).append(item)
+    rows = {}
+    for kind, items in kinds.items():
+        _, a, w, b, epi, out = items[0]
+        res = resid if epi == "residual" else None
+        got = launched("decode_gemm", d.decode_gemm, a, w, b, epilogue=epi, resid=res,
+                       out_dtype=out)
+        want = d.decode_gemm(a, w, b, epilogue=epi, resid=res, out_dtype=out, impl="plain")
+        err = float((got.float() - want.float()).abs().max())
+        tol = (2.0 ** -7 if out == bf else 1e-5) * float(want.float().abs().max())
+        if not err <= tol:
+            fail(f"K4 GEMM '{kind}': error {err:.3g} beyond {tol:.3g} of the plain version")
+        rows[kind] = dict(count=len(items), err=err, ms=time_ms(lambda: run(items)),
+                          library_ms=time_ms(lambda: run_library(items)))
+        print(f"[4] K4 GEMM '{kind}' ({len(items)}x, M {r}, N {w.shape[1]}, K {w.shape[0]}, "
+              f"{a.dtype} -> {out}, {epi}): max err {err:.3g} (limit {tol:.3g}); kernel "
+              f"{rows[kind]['ms']:.4f} ms, addmm {rows[kind]['library_ms']:.4f} ms for all "
+              f"{len(items)}", flush=True)
+    # The bound: the products' operations, and their weights and biases read
+    # once. Their activations are the step's own intermediates (4.4 MB each,
+    # L2-sized); counted as device-memory traffic they would give `via_hbm`.
+    flops = sum(2.0 * r * w.shape[0] * w.shape[1] for _, _, w, _, _, _ in products)
+    weights = sum(nbytes(w, b) for _, _, w, b, _, _ in products)
+    activations = sum(nbytes(a) + r * w.shape[1] * (4 if out == f32 else 2)
+                      * (2 if epi == "residual" else 1) for _, a, w, _, epi, out in products)
+    b_ms, b_by = bound_ms(weights, flops, bf)
+    via_hbm = bound_ms(weights + activations, flops, bf)[0]
+    phase = dict(products=len(products), gflop=flops / 1e9, ms=time_ms(lambda: run(products),
+                                                                        iters=5),
+                 library_ms=time_ms(lambda: run_library(products), iters=5), bound_ms=b_ms,
+                 bound_by=b_by, bound_ms_activations_via_hbm=via_hbm, kinds=rows)
+    print(f"[4] K4 GEMM phase, the {len(products)} products of one step ({flops / 1e9:.1f} "
+          f"GFLOP): kernel {phase['ms']:.4f} ms, library (addmm) {phase['library_ms']:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}; {via_hbm:.5f} ms with every activation through "
+          f"device memory)", flush=True)
+    return phase
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -708,7 +819,7 @@ def run_engine(model, cfg, samples, mode, dev):
           f"max_memory_allocated={peak} launches={json.dumps(launches)} "
           f"faces_kept={sum(len(f) for f in faces)}", flush=True)
     profile_call(f"engine={mode}", lambda: model.forward_eval(
-        batch, precision="bf16", mode=mode, early_stop=False))
+        batch, precision="bf16", mode=mode, early_stop=False), top=12)
     return launches, grid, batch
 
 
@@ -1041,8 +1152,13 @@ def main() -> int:
             for line in f:
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1]
-                elif "registers" in line or "spill" in line:
+                elif "registers" in line or "spill" in line or "Performance Loss" in line:
                     print(f"[1] ptxas {name} {kernel}: {line.strip()}", flush=True)
+    hgmma = hgmma_count(_build.lib_path("decode_step"))
+    print(f"[1] cuobjdump -sass libdecode_step.so: {hgmma} HGMMA instructions (K4's GEMM on "
+          f"wgmma)", flush=True)
+    if not hgmma:
+        fail("K4's GEMM holds no wgmma (HGMMA) instruction")
 
     cfg = load_config("configs/ours.yml")
     mc = cfg.model
@@ -1178,6 +1294,7 @@ def main() -> int:
                     time_ms(lambda: decode_step(step, **inp, num_head=h), iters=5),
                     time_ms(lambda: decode_step(step, **inp, num_head=h, impl="plain"),
                             iters=5), None, b, fl))
+    gemm_phase = k4_gemm_phase(inp, mc, rng, dev)
     del inp
     # K3 (and K2 with dropout) at the three training shapes, bf16, dropout on
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1251,6 +1368,7 @@ def main() -> int:
     # call; their other shapes ride along
     summary["kernels"][1]["shapes"] = k2_rows
     summary["kernels"][2]["shapes"] = k3_rows
+    summary["kernels"][3]["gemm_phase"] = gemm_phase
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,15 +6,17 @@
 // float32 minimum, and the argmax over s (first index on ties). Only the
 // int32 winners are written.
 //
-// What bounds it here: at the serve shape (N=20, R=216, S=220, E=512) it
-// reads ~9 MB in bf16 (2.7 us at 3.35 TB/s) for ~0.97 GFLOP of products.
-// The design keeps the logits out of device memory: bf16 inputs run on the
-// tensor cores (pointer.cuh's tensor-core kernel: 64 memory rows x all E
-// staged in shared memory, 16 pointer rows per warp, a running (max,
-// index) per row merged across the quad with the first-index rule); fp32
-// inputs run a CUDA-core kernel that streams memory in 64-row S-tiles with
-// the same running (max, index), because a sample's whole memory (450 KB
-// in fp32) does not fit in shared memory.
+// What bounds it here: bytes. At the serve shape (N=20, R=216, S=220,
+// E=512) it reads ~9 MB in bf16 (2.7 us at 3.35 TB/s) for ~0.97 GFLOP of
+// products. bf16 runs pointer.cuh's tensor-core kernel: 140 blocks of 32
+// rows at that shape (the card has 132 SMs), each staging its rows once in
+// shared memory and streaming its sample's memory through a ring of TMA
+// boxes (256 memory rows x 64 columns, swizzled), ldmatrix fragments with
+// each A fragment feeding 8 products, mask staged per tile, and the logits
+// never leaving registers; the four warps that split a tile's columns merge
+// their (max, index) pairs with the first-index rule. fp32 runs a
+// CUDA-core kernel that streams memory in 64-row S-tiles with the same
+// running (max, index) (the parity path).
 
 #include "pointer.cuh"
 
@@ -31,5 +33,27 @@ FF_EXPORT int pointer_argmax(int dtype, const void* rows, const void* memory, co
     return ff::launch_pointer_argmax<__nv_bfloat16, __nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(rows), static_cast<const __nv_bfloat16*>(memory), m,
         nullptr, N, R, S, E, o, nullptr, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Test entry, not on any main path: the tensor-core kernel as K4's last
+// phase runs it (rows fp32 or bf16, bf16 memory, an optional mask and an
+// optional additive fp32 bias, and the gather of the winners into
+// `gathered` (N, R, E)).
+FF_EXPORT int pointer_argmax_gather(int rows_dtype, const void* rows, const void* memory,
+                                    const void* mask, const void* bias, int N, int R, int S,
+                                    int E, void* out, void* gathered, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto mem = static_cast<const __nv_bfloat16*>(memory);
+  auto m = static_cast<const uint8_t*>(mask);
+  auto b = static_cast<const float*>(bias);
+  auto o = static_cast<int32_t*>(out);
+  auto gth = static_cast<__nv_bfloat16*>(gathered);
+  if (rows_dtype == FF_FLOAT32)
+    return ff::launch_pointer_argmax<float, __nv_bfloat16>(static_cast<const float*>(rows), mem,
+                                                           m, b, N, R, S, E, o, gth, st);
+  if (rows_dtype == FF_BFLOAT16)
+    return ff::launch_pointer_argmax<__nv_bfloat16, __nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(rows), mem, m, b, N, R, S, E, o, gth, st);
   return (int)cudaErrorInvalidValue;
 }

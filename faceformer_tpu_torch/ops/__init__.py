@@ -7,7 +7,10 @@ switch and no fallback. ``impl="plain"`` runs the plain version on any
 device, for comparisons.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that it
-went through the kernels; ``reset_launches`` sets every count to 0.
+went through the kernels; ``reset_launches`` sets every count to 0. The
+last two entries count test entries that expose a phase of K4 alone (its
+pointer argmax with the gather, and one of its GEMMs); no main path calls
+them.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"pointer_argmax": 0, "flash_fwd": 0, "flash_bwd": 0,
-                            "decode_step": 0}
+                            "decode_step": 0, "pointer_argmax_gather": 0, "decode_gemm": 0}
 
 
 def reset_launches() -> None:

@@ -38,7 +38,8 @@ def nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def lib_path(name: str) -> str:
+    """The built shared library of ``csrc/<name>.cu``."""
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
@@ -48,7 +49,7 @@ def log_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
-    lib = _lib_path(name)
+    lib = lib_path(name)
     if not os.path.exists(lib):
         return True
     deps = [os.path.join(CSRC, f"{name}.cu")] + glob.glob(os.path.join(CSRC, "*.cuh"))
@@ -65,7 +66,7 @@ def build_all(names: Sequence[str] = SOURCES) -> List[str]:
     exe = nvcc()
     procs = {}
     for name in todo:
-        cmd = [exe, *NVCC_FLAGS, "-o", _lib_path(name) + ".tmp",
+        cmd = [exe, *NVCC_FLAGS, "-o", lib_path(name) + ".tmp",
                os.path.join(CSRC, f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -77,7 +78,7 @@ def build_all(names: Sequence[str] = SOURCES) -> List[str]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
         else:
-            os.replace(_lib_path(name) + ".tmp", _lib_path(name))
+            os.replace(lib_path(name) + ".tmp", lib_path(name))
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return todo
@@ -88,7 +89,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(_lib_path(name))
+        lib = ctypes.CDLL(lib_path(name))
         lib.ff_error_string.argtypes = [ctypes.c_int]
         lib.ff_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

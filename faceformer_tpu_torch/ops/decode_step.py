@@ -207,3 +207,65 @@ def decode_step(step: int, x, qpos_t, packed, cross_k, cross_v, memory, mem_bias
     _build.check("decode_step", status, "decode_step launch")
     ops.LAUNCHES["decode_step"] += 1
     return x_out, tokens
+
+
+_EPILOGUES = {"store": 0, "relu": 1, "residual": 2}
+
+
+def decode_gemm_plain(a, w, bias, epilogue: str = "store", resid=None, out_dtype=None):
+    """One product of the step in plain PyTorch with the kernel's rounding:
+    y = a @ w + bias in fp32; "relu" clamps it at 0; "residual" returns
+    resid + y with y first rounded to resid's dtype (the residual add in the
+    compute type); else y in ``out_dtype`` (default: a's dtype)."""
+    y = a.float() @ w.float() + bias
+    if epilogue == "relu":
+        y = torch.relu(y)
+    if epilogue == "residual":
+        return (resid.float() + y.to(resid.dtype).float()).to(resid.dtype)
+    return y.to(out_dtype or a.dtype)
+
+
+def decode_gemm(a, w, bias, *, epilogue: str = "store", resid=None, out_dtype=None,
+                impl: str = "auto"):
+    """One of the fused step's products alone, for tests and timing; no main
+    path calls it (the step calls the GEMM from C). a (M, K) and w (K, N)
+    in the step's (in, out) layout, bias (N,) float32; epilogue "store",
+    "relu" or "residual" (then resid (M, N) gives the output dtype). The
+    type combinations are the step's: w bfloat16 with a bfloat16 (any
+    epilogue; "store" may also write float32) or a float32 (the cross
+    out-projection: "residual" onto bfloat16), or everything float32.
+    CUDA tensors launch csrc/decode_step.cu's GEMM; CPU tensors (or
+    impl="plain") run ``decode_gemm_plain``."""
+    if epilogue not in _EPILOGUES:
+        raise ValueError(f"epilogue {epilogue!r}: need one of {sorted(_EPILOGUES)}")
+    m, k = a.shape
+    n = w.shape[1]
+    if w.shape != (k, n) or bias.shape != (n,) or bias.dtype != torch.float32:
+        raise ValueError(f"a {tuple(a.shape)}, w {tuple(w.shape)}, bias {tuple(bias.shape)} "
+                         f"{bias.dtype}: want (M, K), (K, N), (N,) float32")
+    if (epilogue == "residual") != (resid is not None) or (
+            resid is not None and resid.shape != (m, n)):
+        raise ValueError("resid (M, N) goes with epilogue 'residual', and only with it")
+    c_dtype = resid.dtype if epilogue == "residual" else (out_dtype or a.dtype)
+    tensors = [a, w, bias] + ([resid] if resid is not None else [])
+    if not ops.use_kernel(impl, *tensors):
+        return decode_gemm_plain(a, w, bias, epilogue, resid, out_dtype)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode_gemm needs contiguous tensors")
+    if any(t.dtype not in _DTYPES for t in (a, w)) or c_dtype not in _DTYPES:
+        raise ValueError(f"dtypes a {a.dtype}, w {w.dtype}, out {c_dtype}: need float32 or "
+                         "bfloat16")
+    out = torch.empty((m, n), dtype=c_dtype, device=a.device)
+    fn = _build.bind("decode_step", "decode_gemm",
+                     [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p])
+    status = fn(_DTYPES[a.dtype], _DTYPES[w.dtype], _DTYPES[c_dtype], _EPILOGUES[epilogue],
+                m, n, k, _build.ptr(a), k, _build.ptr(w), n, _build.ptr(bias), _build.ptr(out), n,
+                ctypes.c_void_p(None) if resid is None else _build.ptr(resid), n,
+                _build.stream_ptr(a.device))
+    _build.check("decode_step", status, f"decode_gemm launch ({a.dtype} . {w.dtype} -> "
+                                        f"{c_dtype}, {epilogue})")
+    ops.LAUNCHES["decode_gemm"] += 1
+    return out

@@ -18,7 +18,12 @@ from faceformer_tpu_torch import ops
 from faceformer_tpu_torch.config import ModelConfig, config_from_dict
 from faceformer_tpu_torch.decode import NEG, _cross_kv, greedy_decode_parallel
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
-from faceformer_tpu_torch.ops.decode_step import decode_step, pack_decoder_weights
+from faceformer_tpu_torch.ops.decode_step import (
+    decode_gemm,
+    decode_gemm_plain,
+    decode_step,
+    pack_decoder_weights,
+)
 from faceformer_tpu_torch.ops.flash import (
     flash_attention_bwd,
     flash_attention_fwd,
@@ -26,7 +31,7 @@ from faceformer_tpu_torch.ops.flash import (
     padding_mask_bias,
     philox_keep_mask,
 )
-from faceformer_tpu_torch.ops.pointer import pointer_argmax
+from faceformer_tpu_torch.ops.pointer import pointer_argmax, pointer_argmax_gather
 from faceformer_tpu_torch.params import jitter_affine_
 from faceformer_tpu_torch.train.step import make_optimizer, train_step
 
@@ -54,27 +59,56 @@ def launched(name, fn, *args, **kwargs):
     return out
 
 
+# (n, r, s, e): row counts off the kernel's 16- and 32-row blocks; memory
+# lengths of one row, off the 128- and 256-row tiles, the serving length and
+# past one 256-row tile; embedding widths of 64, 256, 512 and 1,024 (one to
+# sixteen 64-column boxes)
+POINTER_SHAPES = [(4, 70, 90, 64), (3, 45, 1, 256), (3, 45, 17, 512), (20, 216, 220, 512),
+                  (2, 100, 300, 256), (2, 40, 70, 1024)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pointer_kernel_on_card(cuda_device, dtype):
+@pytest.mark.parametrize("n,r,s,e", POINTER_SHAPES)
+def test_pointer_kernel_on_card(cuda_device, dtype, n, r, s, e):
+    """K1 against its plain version (fp32 indices exact, bf16 where the
+    top-two gap is clear), constructed exact ties to the first index, and
+    the same kernel as K4's last phase: fp32 or bf16 rows on bf16 memory
+    with the padding as an additive bias, and the fused gather."""
     rng = np.random.default_rng(3)
-    n, r, s, e = 4, 70, 90, 64
     rows = torch.as_tensor(rng.standard_normal((n, r, e)), dtype=torch.float32)
     memory = torch.as_tensor(rng.standard_normal((n, s, e)), dtype=torch.float32)
-    memory[:, 9] = memory[:, 5]  # constructed ties: rows aimed at row 5 (== row 9)
-    rows[:, :6] = 2 * memory[:, 5:6]
-    mask = torch.as_tensor(np.arange(s)[None] >= rng.integers(20, s + 1, (n, 1)))
+    ties = s > 9
+    if ties:  # memory rows 5 and 9 equal, and rows aimed at them
+        memory[:, 9] = memory[:, 5]
+        rows[:, :6] = 2 * memory[:, 5:6]
+    mask = torch.as_tensor(np.arange(s)[None] >= rng.integers(min(10, s), s + 1, (n, 1)))
     rows, memory, mask = (t.to(cuda_device) for t in (rows.to(dtype), memory.to(dtype), mask))
+
+    def clear_gap(rows, memory, bias):
+        logits = torch.einsum("nre,nse->nrs", rows.float(), memory.float()) + bias[:, None]
+        if s == 1:
+            return torch.ones(logits.shape[:2], dtype=torch.bool, device=cuda_device)
+        top2 = logits.topk(2, dim=-1).values
+        return (top2[..., 0] - top2[..., 1]) > 1e-3
+
+    bias = torch.where(mask, NEG, 0.0).float()
     got = launched("pointer_argmax", pointer_argmax, rows, memory, mask)
     want = pointer_argmax(rows, memory, mask, impl="plain")
-    assert (got[:, :6] == 5).all()
+    if ties:
+        assert (got[:, :6] == 5).all()
     if dtype == torch.float32:
         assert torch.equal(got, want)
     else:
-        logits = torch.einsum("nre,nse->nrs", rows.float(), memory.float()).masked_fill(
-            mask[:, None], NEG)
-        top2 = logits.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > 1e-3
-        assert not ((got != want) & clear).any()
+        assert not ((got != want) & clear_gap(rows, memory, bias)).any()
+
+    mem16 = memory.to(torch.bfloat16)
+    tok, gathered = launched("pointer_argmax_gather", pointer_argmax_gather, rows, mem16,
+                             bias=bias)
+    tok_p, _ = pointer_argmax_gather(rows, mem16, bias=bias, impl="plain")
+    assert torch.equal(gathered, torch.gather(mem16, 1, tok.long()[..., None].expand(-1, -1, e)))
+    if ties:
+        assert (tok[:, :6] == 5).all()
+    assert not ((tok != tok_p) & clear_gap(rows, mem16, bias)).any()
 
 
 # (n, sq, sk, causal, hd). The tensor-core kernel (bf16, hd = 64, Sk <= 256)
@@ -200,19 +234,19 @@ def test_flash_bwd_kernel_on_card(cuda_device, dtype, tol, rate, n, sq, sk, caus
         assert not torch.equal(got[2], other[2])
 
 
-def decode_state(dev, dtype, n=3, step=5, seed=2):
+def decode_state(dev, dtype, n=3, step=5, seed=2, cfg=CFG):
     """A mid-decode state from a seeded model (biases and LayerNorms
     jittered off their init values): cache positions < step set."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
-    model = SurfaceFormerParallel(CFG, generator=gen, device=dev)
+    model = SurfaceFormerParallel(cfg, generator=gen, device=dev)
     jitter_affine_(model, gen)
-    f, e, s, lyr = CFG.num_lines, CFG.num_model, CFG.num_lines + 4, CFG.num_decoder_layers
+    f, e, s, lyr = cfg.num_lines, cfg.num_model, cfg.num_lines + 4, cfg.num_decoder_layers
     memory = torch.as_tensor(rng.standard_normal((n, s, e)), dtype=dtype, device=dev)
     mask = torch.as_tensor(np.arange(s)[None] >= rng.integers(10, s + 1, (n, 1)), device=dev)
     with torch.no_grad():
-        ck, cv = _cross_kv(model, memory, model.pos_table[None, :s].to(dtype), CFG.num_head)
-    cache = torch.zeros((lyr, 2, n * f, CFG.max_face_length, e), dtype=dtype, device=dev)
+        ck, cv = _cross_kv(model, memory, model.pos_table[None, :s].to(dtype), cfg.num_head)
+    cache = torch.zeros((lyr, 2, n * f, cfg.max_face_length, e), dtype=dtype, device=dev)
     cache[..., :step, :] = torch.as_tensor(rng.standard_normal(cache[..., :step, :].shape),
                                            dtype=dtype, device=dev)
     idx = torch.as_tensor(rng.integers(0, s, (n, f)), device=dev)
@@ -224,17 +258,26 @@ def decode_state(dev, dtype, n=3, step=5, seed=2):
                        mem_bias=torch.where(mask, NEG, 0.0).float(), cache=cache)
 
 
+# d = 256 over 8 heads (hd = 32), the dims of configs/step-native.yml, with
+# 37 lines: 111 anchor rows at n = 3, off every GEMM block tile
+CFG_HD32 = ModelConfig(num_points_per_line=8, num_lines=37, max_face_length=12, num_model=256,
+                       num_head=8, num_feedforward=512, num_encoder_layers=2,
+                       num_decoder_layers=2, dropout=0.0)
+STEP_CASES = [(cfg, step) for cfg in (CFG, CFG_HD32) for step in (0, 5, CFG.max_face_length - 2)]
+
+
+@pytest.mark.parametrize("cfg,step", STEP_CASES, ids=[f"d{c.num_model}-h{c.num_head}-step{t}"
+                                                      for c, t in STEP_CASES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_step_kernel_on_card(cuda_device, dtype):
-    step = 5
-    _, inp = decode_state(cuda_device, dtype, step=step)
+def test_decode_step_kernel_on_card(cuda_device, dtype, cfg, step):
+    _, inp = decode_state(cuda_device, dtype, step=step, cfg=cfg)
     cache_p = inp["cache"].clone()
     ptr_k, ptr_p = (torch.empty(inp["x"].shape, device=cuda_device) for _ in range(2))
-    x_k, tok_k = launched("decode_step", decode_step, step, **inp, num_head=CFG.num_head,
+    x_k, tok_k = launched("decode_step", decode_step, step, **inp, num_head=cfg.num_head,
                           pointer_out=ptr_k)
-    _, tok_p = decode_step(step, **{**inp, "cache": cache_p}, num_head=CFG.num_head,
+    _, tok_p = decode_step(step, **{**inp, "cache": cache_p}, num_head=cfg.num_head,
                            impl="plain", pointer_out=ptr_p)
-    n, e = inp["mem_bias"].shape[0], CFG.num_model
+    n, e = inp["mem_bias"].shape[0], cfg.num_model
     x_own = torch.gather(inp["memory"], 1, tok_k.long()[..., None].expand(-1, -1, e))
     assert torch.equal(x_k, x_own.reshape(-1, e))  # x_next gathers the kernel's tokens
     assert torch.equal(inp["cache"][:, :, :, :step], cache_p[:, :, :, :step])
@@ -257,6 +300,40 @@ def test_decode_step_kernel_on_card(cuda_device, dtype):
         assert float(slot.mean(dim=(2, 3)).max()) <= 5e-3
         assert float(d_ptr.max()) <= 0.1
         assert float(d_ptr.mean()) <= 5e-3
+
+
+# the step's products alone: (a dtype, w dtype, epilogue, out dtype) as the
+# step runs them, at row counts off the 192-row block tile and k extents off
+# the 64-deep k tile
+GEMM_TYPES = [(torch.bfloat16, torch.bfloat16, "store", torch.bfloat16),
+              (torch.bfloat16, torch.bfloat16, "relu", torch.bfloat16),
+              (torch.bfloat16, torch.bfloat16, "residual", torch.bfloat16),
+              (torch.bfloat16, torch.bfloat16, "store", torch.float32),
+              (torch.float32, torch.bfloat16, "residual", torch.bfloat16),
+              (torch.float32, torch.float32, "residual", torch.float32)]
+
+
+@pytest.mark.parametrize("m,n,k", [(111, 256, 96), (200, 128, 512), (4320, 512, 1024)])
+@pytest.mark.parametrize("a_dtype,w_dtype,epilogue,out_dtype", GEMM_TYPES)
+def test_decode_gemm_on_card(cuda_device, a_dtype, w_dtype, epilogue, out_dtype, m, n, k):
+    """K4's GEMM against its plain version, each epilogue: within a rounding
+    of the output type (fp32 sums in another order flip bf16 roundings)."""
+    rng = np.random.default_rng(m + n + k)
+    a = torch.as_tensor(rng.standard_normal((m, k)), dtype=a_dtype, device=cuda_device)
+    w = torch.as_tensor(rng.standard_normal((k, n)) / np.sqrt(k), dtype=w_dtype,
+                        device=cuda_device)
+    bias = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=cuda_device)
+    resid = (torch.as_tensor(rng.standard_normal((m, n)), dtype=out_dtype, device=cuda_device)
+             if epilogue == "residual" else None)
+    got = launched("decode_gemm", decode_gemm, a, w, bias, epilogue=epilogue, resid=resid,
+                   out_dtype=out_dtype)
+    want = decode_gemm_plain(a, w, bias, epilogue, resid, out_dtype)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    # bf16: two roundings of the largest magnitude at most; fp32: 1e-5 of it
+    tol = (2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5) * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if epilogue == "relu":
+        assert float(got.float().min()) >= 0.0
 
 
 def test_fused_grids_equal_causal_cache_on_card(cuda_device):

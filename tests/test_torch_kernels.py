@@ -12,9 +12,9 @@ from faceformer_tpu.ops import decode_step as jds
 from faceformer_tpu.ops.flash import _flash_fwd_impl
 from faceformer_tpu.ops.pointer import pointer_argmax_batched
 from faceformer_tpu_torch.decode import NEG, _cross_kv
-from faceformer_tpu_torch.ops.decode_step import decode_step, pack_decoder_weights
+from faceformer_tpu_torch.ops.decode_step import decode_gemm, decode_step, pack_decoder_weights
 from faceformer_tpu_torch.ops.flash import flash_attention_fwd, padding_mask_bias
-from faceformer_tpu_torch.ops.pointer import pointer_argmax
+from faceformer_tpu_torch.ops.pointer import pointer_argmax, pointer_argmax_gather
 
 from torch_port_helpers import (  # noqa: F401
     jax_params,
@@ -42,6 +42,53 @@ def test_pointer_plain_matches_pallas():
     ours = pointer_argmax(torch.as_tensor(rows), torch.as_tensor(memory), torch.as_tensor(mask))
     np.testing.assert_array_equal(ours.numpy(), theirs)
     assert (ours[0, :3] == 2).all() and (ours[2, :3] == 7).all()
+
+
+@pytest.mark.parametrize("padding", ["mask", "bias"])
+def test_pointer_gather_plain_matches_pallas(padding):
+    """K4's last phase alone (the kernel's plain version on the CPU): the
+    Pallas pointer argmax's tokens, with the padding as a mask or as the
+    step's additive bias, and the winning memory rows gathered."""
+    rows, memory, mask = pointer_inputs(np.random.default_rng(0))
+    mem16 = torch.as_tensor(memory).to(torch.bfloat16)
+    theirs = np.asarray(pointer_argmax_batched(
+        jnp.asarray(rows), jnp.asarray(mem16.float().numpy()), jnp.asarray(mask),
+        interpret=True))
+    kw = ({"padding_mask": torch.as_tensor(mask)} if padding == "mask" else
+          {"bias": torch.where(torch.as_tensor(mask), NEG, 0.0).float()})
+    tokens, gathered = pointer_argmax_gather(torch.as_tensor(rows), mem16, **kw)
+    np.testing.assert_array_equal(tokens.numpy(), theirs)
+    assert (tokens[0, :3] == 2).all() and (tokens[2, :3] == 7).all()
+    want = np.take_along_axis(mem16.float().numpy(), theirs[..., None].astype(np.int64), 1)
+    np.testing.assert_array_equal(gathered.float().numpy(), want)
+
+
+@pytest.mark.parametrize("epilogue", ["store", "relu", "residual"])
+def test_decode_gemm_plain_matches_pallas_epilogues(epilogue):
+    """One product of the step alone (the kernel's plain version on the
+    CPU) against the Pallas step's own expressions for it: fp32 dot plus
+    bias, then `.astype(dtype)`, ReLU before the cast, or the residual add
+    `x + (dot + b).astype(dtype)` in the compute type. fp32 exactly as
+    computed; bf16 within one rounding (the two fp32 dots may sum in other
+    orders)."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((7, 32)).astype(np.float32)
+    w = (rng.standard_normal((32, 16)) / 6).astype(np.float32)
+    b = rng.standard_normal(16).astype(np.float32)
+    x = rng.standard_normal((7, 16)).astype(np.float32)
+    for dt, jdt, rtol in ((torch.float32, jnp.float32, 1e-6), (torch.bfloat16, jnp.bfloat16,
+                                                               2.0 ** -7)):
+        aj, wj, xj = (jnp.asarray(v).astype(jdt) for v in (a, w, x))
+        dot = jnp.dot(aj, wj, preferred_element_type=jnp.float32) + jnp.asarray(b)
+        want = {"store": lambda: dot.astype(jdt),
+                "relu": lambda: jnp.maximum(dot, 0.0).astype(jdt),
+                "residual": lambda: xj + dot.astype(jdt)}[epilogue]()
+        ours = decode_gemm(torch.as_tensor(a).to(dt), torch.as_tensor(w).to(dt),
+                           torch.as_tensor(b), epilogue=epilogue,
+                           resid=torch.as_tensor(x).to(dt) if epilogue == "residual" else None)
+        assert ours.dtype == dt
+        np.testing.assert_allclose(ours.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   rtol=rtol, atol=rtol)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -142,3 +189,19 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         flash_attention_fwd(q, q, q, torch.zeros((1, 5)))
 
+
+def test_test_entries_reject_bad_input():
+    rows, memory, mask = (torch.as_tensor(a) for a in pointer_inputs(np.random.default_rng(0)))
+    with pytest.raises(ValueError):  # memory must be bf16
+        pointer_argmax_gather(rows, memory, mask)
+    with pytest.raises(ValueError):
+        pointer_argmax_gather(rows, memory.bfloat16(), bias=torch.zeros(3, 5))
+    a, w, b = torch.zeros((4, 8)), torch.zeros((8, 6)), torch.zeros(6)
+    with pytest.raises(ValueError):
+        decode_gemm(a, w, b, epilogue="gelu")
+    with pytest.raises(ValueError):  # residual needs resid, and only it
+        decode_gemm(a, w, b, epilogue="residual")
+    with pytest.raises(ValueError):
+        decode_gemm(a, w, b, resid=torch.zeros((4, 6)))
+    with pytest.raises(ValueError):
+        decode_gemm(a, w[:, :5], b)
