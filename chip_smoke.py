@@ -37,7 +37,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
      training calls): kernel, plain version, one-call library yardstick, and
      the card's lower bound; and K4's GEMM phase alone (the 49 products of
      one step, each kind held against its plain version) beside addmm;
-  5. one JSON summary of the kernels, the card line, and the result line.
+  5. the command line at the `ours` width of configs/synthetic-big.yml
+     (batch 32, bf16, remat, causal_cache validation), each run in a
+     subprocess from a temporary directory: ``tools.synthetic_data`` writes
+     704 rich solids (654 / 14 / 36); ``main`` fits two epochs (40 steps,
+     validation and checkpoints after each), tests ``last`` with the fused
+     engine twice and with causal_cache, validates it, resumes it for
+     epoch 3 alone, and tests a Lightning-style .ckpt exported from it;
+     ``tools.predict`` decodes the test wireframes. Gates: a finite loss
+     every step that falls from epoch 1 to 2, the checkpoints, 36 JSONs
+     of four keys a test, fused byte-identical on a repeat and against
+     the exported .ckpt, the resume's steps 41-60, the kernels each run
+     launched. Prints samples/s, host seconds, validate and test times,
+     checkpoint cost, peak memory and launches;
+  6. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
@@ -49,9 +62,11 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -966,7 +981,8 @@ def timed_step(model, optimizer, batch, generator, cfg):
 
 def run_training(cfg, rng, seed, samples, dev):
     """The training path at the `ours` width. Returns the flash launch
-    counts of the ten dropout-free bf16 steps (the main-path run)."""
+    counts of the ten dropout-free bf16 steps (the main-path run), and the
+    samples/s with remat off and full."""
     import torch
     from faceformer_tpu_torch import ops
     from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
@@ -1096,8 +1112,9 @@ def run_training(cfg, rng, seed, samples, dev):
               f"backward_ms={split[1]:.2f} optimizer_ms={split[2]:.2f} "
               f"max_memory_allocated={peak} max_memory_reserved={reserved} "
               f"allocator_retries={retries}", flush=True)
+        return len(samples) / step_s
 
-    measure("remat off")
+    rates = {"remat off": measure("remat off")}
     profile_call("train step (remat off)",
                  lambda: train_step(model, optimizer, batch, dgen, tcfg), top=12)
     model.cfg = dataclasses.replace(mc, remat=True)
@@ -1106,7 +1123,7 @@ def run_training(cfg, rng, seed, samples, dev):
     expect_launches("1 step, remat full", 2 * per_step, per_step)
     if not bool(torch.isfinite(loss)):
         fail("train: non-finite loss with remat")
-    measure("remat full")
+    rates["remat full"] = measure("remat full")
     model.cfg = dataclasses.replace(mc, remat=True, remat_policy="attn")
     try:
         train_step(model, optimizer, batch, dgen, tcfg)
@@ -1114,7 +1131,286 @@ def run_training(cfg, rng, seed, samples, dev):
         print(f"[3] train remat_policy 'attn' refused: {e}", flush=True)
     else:
         fail("a named remat policy ran as if it were ported")
-    return main_launches
+    return main_launches, rates
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the command line at the `ours` width
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+MAIN = "faceformer_tpu_torch.main"
+CLI_CONFIG = os.path.join(REPO, "configs", "synthetic-big.yml")
+# the corpus of synthetic-big.yml cut from 8,192 solids to 704: the seeded
+# 0.93 / 0.02 / 0.05 split then gives 654 / 14 / 36, 20 steps an epoch
+CLI_NUM, CLI_SPLIT = 704, (654, 14, 36)
+CLI_GEN = ("--num", str(CLI_NUM), "--seed", "1", "--profile", "rich", "--max_edges", "216",
+           "--max_faces", "42", "--max_face_len", "36")
+RECORD_KEYS = {"edges", "dominant_directions", "pred_faces", "label_faces"}
+# share of test JSONs whose pred_faces agree between the bf16 fused and
+# causal_cache engines after the 40-step fit: different summation orders
+# may flip near-tied tokens, and one flipped token changes a face. Read
+# 1.0000 on an H100 (PERF.md); the faces each engine predicts are printed
+# beside it
+CLI_AGREE_MIN = 0.9
+
+# Runs in each subprocess: counts set to 0, one module's command line, then
+# the counts and the peak device memory on a line of their own.
+CLI_WRAPPER = """
+import json, runpy, sys
+import torch
+from faceformer_tpu_torch import ops
+ops.reset_launches()
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+print("CLI_STATS " + json.dumps({"launches": ops.LAUNCHES, "max_memory_allocated": peak}))
+"""
+
+
+def run_cli(cwd, label, module, *argv, timeout=900):
+    """``python -m module argv`` in a subprocess run from ``cwd`` (logs/
+    lands there); fails on a non-zero exit. Returns (stdout, launch counts
+    and peak memory, wall seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, module, *argv], cwd=cwd,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n", flush=True)
+        fail(f"{label}: exit code {proc.returncode}")
+    stats = [line for line in proc.stdout.splitlines() if line.startswith("CLI_STATS ")]
+    stats = json.loads(stats[-1][len("CLI_STATS "):])
+    launched_now = {k: v for k, v in stats["launches"].items() if v}
+    print(f"[5] {label}: rc 0 in {wall:.1f} s, launches {launched_now}, max_memory_allocated "
+          f"{stats['max_memory_allocated']}", flush=True)
+    return proc.stdout, stats, wall
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def read_records(json_dir, count):
+    """The prediction JSONs of a test run as {name: bytes}; fails unless
+    there are ``count`` of them, each with exactly the four keys."""
+    names = sorted(os.listdir(json_dir))
+    if len(names) != count:
+        fail(f"{json_dir}: {len(names)} prediction JSONs, expected {count}")
+    out = {}
+    for name in names:
+        with open(os.path.join(json_dir, name), "rb") as f:
+            out[name] = f.read()
+        keys = set(json.loads(out[name]))
+        if keys != RECORD_KEYS:
+            fail(f"{name}: keys {sorted(keys)}, expected {sorted(RECORD_KEYS)}")
+    return out
+
+
+def run_cli_phase(train_rates):
+    """Generate the corpus, then fit, test, validate, resume and predict
+    through the port's command lines at the `ours` width (synthetic-big.yml),
+    each in a subprocess. Returns the kernels' launch counts summed over the
+    fit and the test runs."""
+    import collections
+
+    import torch
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.params import params_to_numpy
+    from faceformer_tpu_torch.train.checkpoint import export_torch_state_dict, load_checkpoint
+    from faceformer_tpu_torch.train.trainer import Harness
+
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        syn = os.path.join(tmp, "syn")
+        run_cli(tmp, "synthetic_data", "faceformer_tpu_torch.tools.synthetic_data",
+                "--root", syn, *CLI_GEN)
+        split = []
+        for name in ("train.txt", "valid.txt", "test.txt"):
+            with open(os.path.join(syn, name)) as f:
+                split.append(sum(1 for line in f if line.strip()))
+        print(f"[5] corpus: {CLI_NUM} rich solids, split train/valid/test {split}", flush=True)
+        if tuple(split) != CLI_SPLIT:
+            fail(f"corpus split {split}, expected {CLI_SPLIT}")
+
+        base = ("root_dir", syn, "trainer.name", "smoke")
+
+        def log(version):
+            return os.path.join(tmp, "logs", "smoke", version)
+
+        ckpt_dir = os.path.join(log("v0"), "checkpoints")
+        last = os.path.join(ckpt_dir, "last")
+
+        # fit: two epochs, validate and checkpoint after each
+        _, st, _ = run_cli(tmp, "fit (2 epochs)", MAIN, "--config-file", CLI_CONFIG, *base,
+                           "trainer.version", "v0", "trainer.max_epochs", "2",
+                           "trainer.checkpoint_period", "1", timeout=600)
+        fit_stats = st
+        total.update(st["launches"])
+        records = read_jsonl(os.path.join(log("v0"), "metrics.jsonl"))
+        losses = [(r["step"], r["train_loss"]) for r in records if "train_loss" in r]
+        steps_per_epoch = CLI_SPLIT[0] // 32
+        if [s for s, _ in losses] != list(range(1, 2 * steps_per_epoch + 1)):
+            fail(f"fit: train_loss logged at steps {[s for s, _ in losses]}")
+        if not all(x is not None and np.isfinite(x) for _, x in losses):
+            fail("fit: a train_loss is not finite")
+        e1 = float(np.mean([x for s, x in losses if s <= steps_per_epoch]))
+        e2 = float(np.mean([x for s, x in losses if s > steps_per_epoch]))
+        valid = [r for r in records if "valid_precision" in r]
+        timing = [r for r in records if "epoch_train_seconds" in r]
+        with open(os.path.join(ckpt_dir, "index.json")) as f:
+            index = json.load(f)
+        print(f"[5] fit: {len(losses)} finite train_loss, epoch means {e1:.4f} -> {e2:.4f}; "
+              f"valid_precision {[r['valid_precision'] for r in valid]}; checkpoints "
+              f"{sorted(os.listdir(ckpt_dir))}", flush=True)
+        if not e2 < e1:
+            fail("fit: epoch 2's mean loss is not below epoch 1's")
+        if len(valid) != 2 or len(timing) != 2:
+            fail(f"fit: {len(valid)} validations and {len(timing)} epoch timings, expected 2")
+        if not os.path.isfile(last) or not index["top"]:
+            fail("fit: no checkpoints/last or an empty top-k index")
+        per_step = 6 + 2 * 6  # encoder, decoder self and cross
+        n_steps = len(losses)
+        if (st["launches"]["flash_bwd"] != n_steps * per_step
+                or st["launches"]["flash_fwd"] < 2 * n_steps * per_step  # remat re-runs it
+                or st["launches"]["pointer_argmax"] <= 0):
+            fail(f"fit: launches {st['launches']}; K3 {n_steps * per_step} and K2 at least "
+                 f"{2 * n_steps * per_step} expected, K1 in validation")
+
+        # test `last` with each engine, fused twice
+        tests = {}
+        for version, mode in (("fused", "fused"), ("causal_cache", "causal_cache"),
+                              ("fused-again", "fused")):
+            _, st, _ = run_cli(tmp, f"test last, decode.mode {mode}", MAIN, "--config-file",
+                               CLI_CONFIG, "--test_ckpt", last, *base, "trainer.version",
+                               f"test-{version}", "decode.mode", mode)
+            total.update(st["launches"])
+            with open(os.path.join(log(f"test-{version}"), "results.json")) as f:
+                results = json.load(f)
+            tests[version] = (read_records(os.path.join(log(f"test-{version}"), "json"),
+                                           CLI_SPLIT[2]), results, st)
+            want = "decode_step" if mode == "fused" else "pointer_argmax"
+            other = "pointer_argmax" if mode == "fused" else "decode_step"
+            if st["launches"][want] <= 0 or st["launches"][other] or not st["launches"]["flash_fwd"]:
+                fail(f"test {mode}: launches {st['launches']}")
+            print(f"[5] test {mode}: {results}", flush=True)
+        fused, cache = tests["fused"][0], tests["causal_cache"][0]
+        repeat = fused == tests["fused-again"][0]
+        share = float(np.mean([json.loads(fused[k])["pred_faces"]
+                               == json.loads(cache[k])["pred_faces"] for k in fused]))
+        faces = {m: sum(len(json.loads(r)["pred_faces"]) for r in tests[m][0].values())
+                 for m in ("fused", "causal_cache")}
+        print(f"[5] test: a second fused run byte-identical: {repeat}; share of JSONs whose "
+              f"pred_faces agree between fused and causal_cache {share:.4f} "
+              f"(>= {CLI_AGREE_MIN}); faces predicted over the {CLI_SPLIT[2]} solids {faces}",
+              flush=True)
+        if not repeat:
+            fail("test: two fused runs wrote different JSONs")
+        if share < CLI_AGREE_MIN:
+            fail("test: fused and causal_cache disagree on too many samples")
+
+        _, st, _ = run_cli(tmp, "validate last", MAIN, "--config-file", CLI_CONFIG,
+                           "--valid_ckpt", last, *base, "trainer.version", "valid")
+        got = [r for r in read_jsonl(os.path.join(log("valid"), "metrics.jsonl"))
+               if "valid_precision" in r]
+        if len(got) != 1 or got[0]["valid_precision"] != valid[-1]["valid_precision"]:
+            fail(f"validate last: {got} against the fit's last validation {valid[-1]}")
+
+        # round trips: two loads of `last` in this process, then a reference
+        # Lightning blob written from it
+        cfg = load_config(CLI_CONFIG, list(base) + ["trainer.version", "v0"])
+        harness = Harness(cfg, device="cuda")
+        a, b = harness.load(last), harness.load(last)
+        tree, _ = load_checkpoint(last)
+        same = (all(torch.equal(v, b["model"].state_dict()[k]) and torch.equal(v.cpu(),
+                                                                               tree["model"][k])
+                    for k, v in a["model"].state_dict().items())
+                and (a["epoch"], a["step"]) == (b["epoch"], b["step"]) == (2, 40)
+                and all(torch.equal(x, y) for i, slot in a["optimizer"].state_dict()["state"].items()
+                        for x, y in zip(slot.values(),
+                                        b["optimizer"].state_dict()["state"][i].values())))
+        print(f"[5] Harness.load(last) twice: parameters and Adam state torch.equal, and equal "
+              f"to the file: {same}; epoch {a['epoch']} step {a['step']}", flush=True)
+        if not same:
+            fail("Harness.load(last) is not repeatable")
+        xckpt = os.path.join(tmp, "epoch=2-exported.ckpt")
+        sd = export_torch_state_dict(params_to_numpy(a["model"]))
+        torch.save({"epoch": 2, "global_step": 40, "pytorch-lightning_version": "1.3.5",
+                    "state_dict": collections.OrderedDict((k, torch.tensor(v))
+                                                          for k, v in sd.items())}, xckpt)
+        del harness, a, b, tree
+        torch.cuda.empty_cache()
+
+        # resume: epoch 3 only, steps 41-60
+        n_before = len(records)
+        _, st, _ = run_cli(tmp, "resume last, max_epochs 3", MAIN, "--config-file", CLI_CONFIG,
+                           "--resume_ckpt", last, *base, "trainer.version", "v0",
+                           "trainer.max_epochs", "3", timeout=600)
+        new = read_jsonl(os.path.join(log("v0"), "metrics.jsonl"))[n_before:]
+        steps = [r["step"] for r in new if "train_loss" in r]
+        with open(last + ".meta.json") as f:
+            meta = json.load(f)
+        tree, _ = load_checkpoint(last)
+        print(f"[5] resume: train_loss at steps {steps[0]}..{steps[-1]} ({len(steps)}), "
+              f"sidecar epoch {meta['epoch']}, checkpoint epoch {tree['epoch']} step "
+              f"{tree['step']}", flush=True)
+        n = steps_per_epoch
+        if (steps != list(range(2 * n + 1, 3 * n + 1)) or meta["epoch"] != 3
+                or (tree["epoch"], tree["step"]) != (3, 3 * n)):
+            fail("resume did not run epoch 3 alone")
+
+        # the Lightning blob through --test_ckpt: the fused JSONs again
+        _, st, _ = run_cli(tmp, "test the exported .ckpt, fused", MAIN, "--config-file",
+                           CLI_CONFIG, "--test_ckpt", xckpt, *base, "trainer.version",
+                           "test-lightning", "decode.mode", "fused")
+        same = read_records(os.path.join(log("test-lightning"), "json"), CLI_SPLIT[2]) == fused
+        print(f"[5] test the exported .ckpt: JSONs equal the fused test's: {same}", flush=True)
+        if not same:
+            fail("the exported Lightning checkpoint decodes differently")
+
+        # predict: the test split's wireframes through tools/predict
+        pred_in = os.path.join(tmp, "pred_in", "json")
+        os.makedirs(pred_in)
+        for name in fused:
+            shutil.copy(os.path.join(syn, "json", name), pred_in)
+        _, st, _ = run_cli(tmp, "predict", "faceformer_tpu_torch.tools.predict", "--config",
+                           CLI_CONFIG, "--ckpt", xckpt, "--root", os.path.dirname(pred_in))
+        preds = read_records(os.path.join(os.path.dirname(pred_in), "pred", "json"),
+                             CLI_SPLIT[2])
+        agree = float(np.mean([json.loads(preds[k])["pred_faces"]
+                               == json.loads(cache[k])["pred_faces"] for k in preds]))
+        print(f"[5] predict: share of JSONs whose pred_faces equal the causal_cache test's "
+              f"{agree:.4f}", flush=True)
+
+        t2 = timing[1]
+        numbers = {
+            "fit_samples_per_s_epoch2": t2["train_samples_per_s"],
+            "fit_train_step_ms_epoch2": t2["train_step_seconds"] * 1e3 / steps_per_epoch,
+            "train_step_samples_per_s_remat_full": train_rates["remat full"],
+            "epoch_seconds": [r["epoch_train_seconds"] for r in timing],
+            "epoch_seconds_outside_train_step": [r["epoch_train_seconds"]
+                                                 - r["train_step_seconds"] for r in timing],
+            "validate_seconds": [r["valid_seconds"] for r in timing],
+            "validate_decode_seconds": [r["valid_decode_seconds"] for r in timing],
+            "validate_metrics_seconds": [r["valid_metrics_seconds"] for r in timing],
+            "test_avg_time_per_sample": {k: v[1]["avg_time_per_sample"]
+                                         for k, v in tests.items()},
+            "checkpoint_seconds": [r["checkpoint_seconds"] for r in timing],
+            "checkpoint_bytes": timing[-1]["checkpoint_bytes"],
+            "max_memory_allocated": {"fit": fit_stats["max_memory_allocated"],
+                                     **{k: v[2]["max_memory_allocated"]
+                                        for k, v in tests.items()}},
+            "launches": {"fit": {k: v for k, v in fit_stats["launches"].items() if v},
+                         **{k: {n: c for n, c in v[2]["launches"].items() if c}
+                            for k, v in tests.items()}},
+        }
+        print(f"[5] cli numbers on {nvidia_smi()}: {json.dumps(numbers)}", flush=True)
+    print(f"[5] the command-line phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(total)
 
 
 # ---------------------------------------------------------------------------
@@ -1218,7 +1514,8 @@ def main() -> int:
     del grids, g32
 
     train_n = TRAIN_SHAPES[0][1]
-    launches = run_training(cfg, rng, args.seed, random_wireframes(rng, train_n), dev)
+    launches, train_rates = run_training(cfg, rng, args.seed,
+                                         random_wireframes(rng, train_n), dev)
     for k, v in launches.items():
         total[k] += v
 
@@ -1358,7 +1655,14 @@ def main() -> int:
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bnd:.5f} ms ({by})",
               flush=True)
 
-    # phase 5
+    # phase 5: the command line at the `ours` width, each run a subprocess of
+    # its own; this process gives back the memory phases 3 and 4 cached
+    del model, rows, memory, mask
+    torch.cuda.empty_cache()
+    for k, v in run_cli_phase(train_rates).items():
+        total[k] += v
+
+    # phase 6
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain,

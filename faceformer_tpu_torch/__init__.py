@@ -11,13 +11,18 @@ with nvcc at first use (``ops/_build.py``).
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise.
 
-Ported so far (the anchor-parallel serving path):
-  - config, data/, geometry/, post_processing, train/metrics: serving copies
+Ported so far (the anchor-parallel model, serving and training):
+  - config, post_processing, geometry/ (fixtures and solids included):
+    copies of the JAX package's numpy modules
+  - data/: packing, batching, ABCDatasetParallel
   - models/: layers, embedding, encoder pass, SurfaceFormerParallel
   - params: seeded init and the JAX parameter-tree bridge
-  - ops/: pointer argmax, flash attention forward, fused decode step
+  - ops/: pointer argmax, flash attention forward and backward, fused
+    decode step
   - decode: greedy_decode_parallel (reference, causal_cache, fused)
-  - tools/predict: wireframes -> post-processed faces
+  - train/: loss, metrics, step, logging, checkpoints, the Harness
+  - main (``python -m faceformer_tpu_torch.main``), tools/predict and
+    tools/synthetic_data: the command lines
 """
 
 __version__ = "0.1.0"

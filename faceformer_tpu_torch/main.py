@@ -1,0 +1,62 @@
+"""Command line of the port: the same surface as the JAX package's main.py,
+plus ``--device``.
+
+    python -m faceformer_tpu_torch.main --config-file configs/ours.yml          # train
+    python -m faceformer_tpu_torch.main --config-file ... --test_ckpt  <path>   # test
+    python -m faceformer_tpu_torch.main --config-file ... --valid_ckpt <path>   # validate
+    python -m faceformer_tpu_torch.main --config-file ... --resume_ckpt <path>  # resume
+    ... [key value ...]                                                        # overrides
+
+Flags go before the key/value overrides: everything after the first
+override is read as overrides. Runs on the card unless ``--device cpu``.
+Checkpoint paths ending in .ckpt/.pt/.pth are reference PyTorch
+checkpoints, converted on load; any other path is one the port wrote.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+from faceformer_tpu_torch.config import load_config
+from faceformer_tpu_torch.train.logging import MetricsLogger
+from faceformer_tpu_torch.train.trainer import Harness
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="SurfaceFormer training (PyTorch port)")
+    parser.add_argument("--config-file", default="", metavar="FILE",
+                        help="path to config file")
+    parser.add_argument("--valid_ckpt", default="", help="checkpoint to validate")
+    parser.add_argument("--test_ckpt", default="", help="checkpoint to test")
+    parser.add_argument("--resume_ckpt", default="",
+                        help="checkpoint to resume training from")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: the card)")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
+                        help="config overrides as key value pairs")
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = get_parser().parse_args(argv)
+    cfg = load_config(args.config_file, args.opts)
+    harness = Harness(cfg, device=args.device)
+
+    if args.test_ckpt:
+        state = harness.load(args.test_ckpt)
+        harness.test(state["model"])
+    elif args.valid_ckpt:
+        state = harness.load(args.valid_ckpt)
+        logger = MetricsLogger(harness.log_dir)
+        harness.validate(state["model"], logger=logger)
+        logger.close()
+    elif args.resume_ckpt:
+        state = harness.load(args.resume_ckpt)
+        harness.fit(state)
+    else:
+        harness.fit()
+
+
+if __name__ == "__main__":
+    main()

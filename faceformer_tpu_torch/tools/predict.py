@@ -1,25 +1,36 @@
 """Label-free inference: wireframe dicts -> predicted faces (PyTorch
-counterpart of faceformer_tpu/tools/predict.py:24-58).
+counterpart of faceformer_tpu/tools/predict.py).
 
 Any dict with an "edges" list of 2D polylines decodes to per-sample face
 lists, post-processed exactly as the test loop does: rows parsed at their
 first face-type token, the enclosedness filter, coedge mapping and the
-majority vote on types. The command-line tool with checkpoint loading
-comes with the port's harness.
+majority vote on types.
+
+    python -m faceformer_tpu_torch.tools.predict --config configs/ours.yml \
+        --ckpt <checkpoint> --root <dir with json/*.json> [--out DIR] [--device cpu]
+
+writes <out>/json/<id>.json with {edges, dominant_directions, pred_faces,
+label_faces=[]}. The checkpoint is one the port wrote or a reference
+.ckpt/.pt/.pth file.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import argparse
+import json
+import os
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from faceformer_tpu_torch.config import Config
+from faceformer_tpu_torch.config import Config, load_config
 from faceformer_tpu_torch.data.batching import collate
 from faceformer_tpu_torch.data.packing import pack_input_edges
 from faceformer_tpu_torch.device import require_device
 from faceformer_tpu_torch.train.metrics import FaceMetrics
+from faceformer_tpu_torch.train.trainer import Harness, NumpyJSONEncoder
 
 
 def predict_faces(model, cfg: Config, raw_samples: Sequence[Dict], device="cuda",
@@ -54,3 +65,55 @@ def predict_faces(model, cfg: Config, raw_samples: Sequence[Dict], device="cuda"
             out = engine.evaluate_sample(grid, np.zeros_like(grid), chunk[i])
             results.append(out["predictions"])
     return results
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    parser = argparse.ArgumentParser(description="label-free face prediction")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--ckpt", required=True)
+    parser.add_argument("--root", required=True,
+                        help="directory containing json/<id>.json wireframes")
+    parser.add_argument("--out", default=None,
+                        help="output dir (default <root>/pred)")
+    parser.add_argument("--reconstruct", action="store_true",
+                        help="also lift predictions to PLY wireframes (not ported)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: the card)")
+    args = parser.parse_args(argv)
+    if args.reconstruct:
+        raise NotImplementedError(
+            "--reconstruct needs reconstruction/, which the port has not copied yet "
+            "(ROADMAP.md Queue 1 item 9)")
+
+    cfg = load_config(args.config)
+    harness = Harness(cfg, device=args.device)
+    state = harness.load(args.ckpt)
+
+    json_dir = os.path.join(args.root, "json")
+    names = sorted(os.path.splitext(n)[0] for n in os.listdir(json_dir))
+    samples = []
+    for name in names:
+        with open(os.path.join(json_dir, f"{name}.json")) as f:
+            samples.append(json.load(f))
+
+    t0 = time.perf_counter()
+    predictions = predict_faces(state["model"], cfg, samples, device=args.device)
+    dt = time.perf_counter() - t0
+    print(f"decoded {len(samples)} samples in {dt:.2f}s "
+          f"({dt / max(len(samples), 1):.3f} s/sample)")
+
+    out_dir = args.out or os.path.join(args.root, "pred")
+    os.makedirs(os.path.join(out_dir, "json"), exist_ok=True)
+    for name, raw, pred in zip(names, samples, predictions):
+        record = {
+            "edges": raw["edges"],
+            "dominant_directions": raw.get("dominant_directions", []),
+            "pred_faces": pred,
+            "label_faces": [],
+        }
+        with open(os.path.join(out_dir, "json", f"{name}.json"), "w") as f:
+            json.dump(record, f, cls=NumpyJSONEncoder)
+
+
+if __name__ == "__main__":
+    main()

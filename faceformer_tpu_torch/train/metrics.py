@@ -7,7 +7,8 @@ faceformer_tpu/train/metrics.py; reference: faceformer/trainer.py:181-300).
     accuracy, then map coedges to canonical edges;
   - faces canonicalize to (majority-vote type, sorted unique edge set);
   - TP = exact set match; precision = TP/|pred|, recall = TP/|label|,
-    type_acc = type matches / TP.
+    type_acc = type matches / TP;
+  - plus a token-level accuracy over non-PAD label positions.
 
 The enclosedness filter runs the Python predicate; the JAX package may run a
 C++ twin of it, which its own tests hold byte-identical.
@@ -16,7 +17,7 @@ C++ twin of it, which its own tests hold byte-identical.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -141,3 +142,42 @@ class FaceMetrics:
         out["predictions"] = predict_set
         out["labels"] = label_set
         return out
+
+    def evaluate_batch(
+        self,
+        predicts: np.ndarray,
+        labels: np.ndarray,
+        raw_datas: Sequence[Dict],
+        sample_valid: Optional[Sequence[bool]] = None,
+    ) -> Dict[str, List]:
+        """Evaluate every valid sample of a batch; returns dict-of-lists plus
+        the batch token accuracy over labels > PAD (reference:
+        trainer.py:296-300).
+
+        Reference quirk kept on purpose: the elementwise grid comparison
+        pairs decode rows (anchored per edge index) with label rows (packed
+        in face/loop/rotation order, data_para.py:71-95), so the rows
+        generally hold different rotations and even a perfect model scores
+        below 1.0. The reference computes the same number on the same
+        grids; it is a training-progress diagnostic, never a headline
+        metric (checkpoints are chosen by valid_precision)."""
+        results: Dict[str, List] = {
+            k: []
+            for k in ("precision", "recall", "type_acc", "accuracy",
+                      "type_acc_coedge_seq", "predictions", "labels")
+        }
+        for i in range(len(labels)):
+            if sample_valid is not None and not sample_valid[i]:
+                continue
+            out = self.evaluate_sample(predicts[i], labels[i], raw_datas[i])
+            for key in results:
+                if key in out:
+                    results[key].append(out[key])
+
+        valid = labels > self.tok.PAD
+        if sample_valid is not None:
+            valid = valid & np.asarray(sample_valid).reshape(
+                -1, *([1] * (labels.ndim - 1)))
+        acc_sum = (valid & (predicts == labels)).sum()
+        results["token_accuracy"] = float(acc_sum / max(valid.sum(), 1))
+        return results

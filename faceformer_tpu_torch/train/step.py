@@ -1,7 +1,8 @@
 """One training step (PyTorch counterpart of the step that
 faceformer_tpu/train/trainer.py:129-155 compiles): teacher-forced forward,
-pointer cross-entropy, backward, Adam, and the NaN-loss skip. The rest of
-the harness (fit, validate, test, checkpoints, logging) is not ported yet.
+pointer cross-entropy, backward, Adam, and the NaN-loss skip. The harness
+(``train/trainer.py``) runs it once a batch and sets each parameter group's
+``lr`` from ``lr_for_epoch`` at the start of each epoch.
 """
 
 from __future__ import annotations

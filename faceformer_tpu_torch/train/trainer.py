@@ -1,0 +1,363 @@
+"""Training/eval harness (PyTorch counterpart of
+faceformer_tpu/train/trainer.py; reference: faceformer/trainer.py:16-300).
+
+Train/valid/test loops, pointer cross-entropy, face metrics, the prediction
+JSON dump, Adam with the per-epoch StepLR, NaN-step skipping, top-k
+checkpoints:
+  - the step is ``train_step.train_step`` (forward, loss, backward, Adam,
+    the NaN skip), one step per batch, in the model's own precision;
+  - batches reach the card one ahead of the step, through pinned host
+    memory and non-blocking copies;
+  - eval decodes with ``cfg.decode`` and scores on the host, one
+    device->host copy of the token grid per batch.
+
+One card. ``trainer.num_devices`` 0 or 1 means the card the harness runs on;
+anything that would take more than one card raises (multi-device runs are
+ROADMAP.md Queue 1 item 7), so there is no quiet single-card run of a
+multi-card config.
+
+``trainer.rng_impl`` picks the JAX package's PRNG. The port accepts it and
+it changes nothing: dropout here draws from ``torch.Generator`` seeds and
+Philox masks whose bits cannot equal JAX's, whichever PRNG JAX uses.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from faceformer_tpu_torch.config import Config
+from faceformer_tpu_torch.data.batching import iter_batches
+from faceformer_tpu_torch.data.dataset import ABCDataset, ABCDatasetParallel
+from faceformer_tpu_torch.device import require_device
+from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+from faceformer_tpu_torch.params import params_from_jax
+from faceformer_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    load_checkpoint,
+    load_torch_checkpoint,
+)
+from faceformer_tpu_torch.train.logging import MetricsLogger
+from faceformer_tpu_torch.train.metrics import FaceMetrics
+from faceformer_tpu_torch.train.step import lr_for_epoch, make_optimizer, train_step
+
+DATASET_REGISTRY = {
+    "ABCDataset": ABCDataset,
+    "ABCDataset_Parallel": ABCDatasetParallel,
+    "ABCDatasetParallel": ABCDatasetParallel,
+}
+MODEL_REGISTRY = {"SurfaceFormer_Parallel": SurfaceFormerParallel}
+
+
+class NumpyJSONEncoder(json.JSONEncoder):
+    """JSON encoder for numpy scalars/arrays (reference uses the
+    numpyencoder package, trainer.py:135-136)."""
+
+    def default(self, obj):
+        if isinstance(obj, np.integer):
+            return int(obj)
+        if isinstance(obj, np.floating):
+            return float(obj)
+        if isinstance(obj, np.ndarray):
+            return obj.tolist()
+        return super().default(obj)
+
+
+def _prefetch_to_device(batches, put):
+    """Lookahead-1 upload: the NEXT batch's copy is issued before the
+    current batch is handed out, so it overlaps the current step."""
+    it = iter(batches)
+    try:
+        nxt = put(next(it))
+    except StopIteration:
+        return
+    for batch in it:
+        cur = nxt
+        nxt = put(batch)
+        yield cur
+    yield nxt
+
+
+def _check_devices(num_devices: int, device: torch.device) -> None:
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if num_devices > 1 or (num_devices == 0 and cards > 1):
+        raise NotImplementedError(
+            f"trainer.num_devices={num_devices} with {cards} cards visible asks for a "
+            "multi-device run; the port runs on one card (multi-device data parallelism "
+            "is ROADMAP.md Queue 1 item 7). Set trainer.num_devices 1.")
+
+
+class Harness:
+    def __init__(self, cfg: Config, datasets: Optional[Dict[str, Any]] = None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.device = require_device(device)
+        if cfg.model_class not in MODEL_REGISTRY:
+            raise NotImplementedError(
+                f"model_class {cfg.model_class!r} is not ported; the port runs "
+                "SurfaceFormer_Parallel (the flat SurfaceFormer is ROADMAP.md Queue 1 item 5)")
+        self.model_cls = MODEL_REGISTRY[cfg.model_class]
+        self.dataset_cls = DATASET_REGISTRY[cfg.dataset_class]
+        _check_devices(cfg.trainer.num_devices, self.device)
+        self.metrics_engine = FaceMetrics(cfg.post_process, cfg.model.token)
+        self.log_dir = os.path.join("logs", cfg.trainer.name, cfg.trainer.version)
+        self._datasets = datasets or {}
+        # seconds of the last validate(): decode on the card, metrics on the host
+        self.eval_seconds = {"decode": 0.0, "metrics": 0.0}
+
+    # -- data ------------------------------------------------------------------
+
+    def dataset(self, split: str):
+        if split not in self._datasets:
+            splits = getattr(self.cfg, f"datasets_{split}")
+            self._datasets[split] = self.dataset_cls(
+                self.cfg.root_dir, list(splits), self.cfg.model)
+        return self._datasets[split]
+
+    def _upload(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A batch's arrays as tensors on the harness's device; to a card
+        through pinned memory with non-blocking copies."""
+        out = {}
+        for key, value in batch.items():
+            if isinstance(value, (list, str)):
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(value))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[key] = t
+        return out
+
+    # -- state -----------------------------------------------------------------
+
+    def init_state(self, seed: Optional[int] = None) -> Dict[str, Any]:
+        """A fresh model (the reference init drawn from ``seed``) and its Adam."""
+        seed = self.cfg.trainer.seed if seed is None else seed
+        model = self.model_cls(self.cfg.model, generator=torch.Generator().manual_seed(seed),
+                               device=self.device)
+        optimizer = make_optimizer(model, self.cfg.trainer)
+        return {"model": model, "optimizer": optimizer, "epoch": 0, "step": 0}
+
+    @staticmethod
+    def checkpoint_tree(state: Dict[str, Any]) -> Dict[str, Any]:
+        """What a checkpoint file holds."""
+        return {"model": state["model"].state_dict(),
+                "optimizer": state["optimizer"].state_dict(),
+                "epoch": int(state["epoch"]), "step": int(state["step"])}
+
+    # -- loops -------------------------------------------------------------------
+
+    def fit(self, state: Optional[Dict[str, Any]] = None,
+            max_epochs: Optional[int] = None) -> Dict[str, Any]:
+        cfg = self.cfg
+        state = state or self.init_state()
+        model, optimizer = state["model"], state["optimizer"]
+        logger = MetricsLogger(self.log_dir)
+        ckpts = CheckpointManager(os.path.join(self.log_dir, "checkpoints"),
+                                  top_k=cfg.trainer.save_top_k)
+        train_ds = self.dataset("train")
+        # dropout seeds and the scheduled-sampling draw; a resumed run
+        # starts the stream afresh, as the JAX harness does
+        generator = torch.Generator().manual_seed(cfg.trainer.seed + 1)
+        max_epochs = max_epochs or cfg.trainer.max_epochs
+        step = state["step"]
+        for epoch in range(state["epoch"], max_epochs):
+            t_epoch = time.perf_counter()
+            for group in optimizer.param_groups:
+                group["lr"] = lr_for_epoch(cfg.trainer, epoch)
+            batches = iter_batches(train_ds, cfg.batch_size_train, shuffle=True,
+                                   drop_last=True, seed=cfg.trainer.seed, epoch=epoch)
+            step_s, samples = 0.0, 0
+            for batch in _prefetch_to_device(batches, self._upload):
+                t0 = time.perf_counter()
+                # train_step reads the loss on the host (the NaN check), so
+                # the step's device work is done when it returns
+                loss, acc = train_step(model, optimizer, batch, generator, cfg)
+                step_s += time.perf_counter() - t0
+                samples += int(batch["label"].shape[0])
+                step += 1
+                if step % cfg.trainer.log_every_n_steps == 0:
+                    logger.log_scalars(step, {"train_loss": float(loss),
+                                              "train_cls_acc": float(acc)})
+            state.update(epoch=epoch + 1, step=step)
+            train_s = time.perf_counter() - t_epoch
+            timing = {"epoch_train_seconds": train_s, "train_step_seconds": step_s,
+                      "train_samples_per_s": samples / train_s if train_s else 0.0}
+            # checkpoint on validation epochs plus the final epoch: the
+            # reference's cadence (ModelCheckpoint every_n_val_epochs=1 with
+            # check_val_every_n_epoch=checkpoint_period, main.py:31-37,75)
+            metric = None
+            if (epoch + 1) % cfg.trainer.checkpoint_period == 0:
+                t0 = time.perf_counter()
+                metric = self.validate(model, logger=logger, step=step)["valid_precision"]
+                timing.update(valid_seconds=time.perf_counter() - t0,
+                              valid_decode_seconds=self.eval_seconds["decode"],
+                              valid_metrics_seconds=self.eval_seconds["metrics"])
+            if metric is not None or epoch + 1 == max_epochs:
+                t0 = time.perf_counter()
+                last = ckpts.save(self.checkpoint_tree(state), cfg, epoch + 1,
+                                  metric_value=metric)
+                timing.update(checkpoint_seconds=time.perf_counter() - t0,
+                              checkpoint_bytes=os.path.getsize(last))
+            logger.log_scalars(step, timing)
+        logger.close()
+        return state
+
+    def _eval_batches(self, split: str):
+        ds = self.dataset(split)
+        batch_size = min(self.cfg.batch_size_valid, max(len(ds), 1))
+        items = ds
+        if self.cfg.decode.sort_eval:
+            # complexity-sorted batches: each batch decodes until its
+            # deepest row retires, so grouping similar edge counts cuts
+            # wasted steps. Samples keep their `id`, so raw-data lookups and
+            # prediction JSONs do not depend on the order.
+            order = sorted(range(len(ds)), key=lambda i: ds[i]["num_input"])
+            items = [ds[i] for i in order]
+        return ds, iter_batches(items, batch_size, pad_to_full=True)
+
+    def _decode(self, model, device_batch) -> torch.Tensor:
+        cfg = self.cfg
+        with torch.no_grad():
+            return model.forward_eval(device_batch, precision=cfg.decode.precision,
+                                      mode=cfg.decode.mode,
+                                      anchor_mode=cfg.decode.anchor_mode)["predict"]
+
+    def validate(self, model, logger: Optional[MetricsLogger] = None,
+                 step: int = 0) -> Dict[str, float]:
+        """Validation loop (reference: trainer.py:91-102)."""
+        ds, batches = self._eval_batches("valid")
+        agg: Dict[str, List[float]] = {}
+        text_dumps = 0
+        decode_s = metrics_s = 0.0
+        for batch in batches:
+            t0 = time.perf_counter()
+            # the host copy of the grid waits for the decode
+            predict = self._decode(model, self._upload(batch)).cpu().numpy()
+            t1 = time.perf_counter()
+            raw = [ds.raw_datas[i] for i in batch["id"]]
+            out = self.metrics_engine.evaluate_batch(
+                predict, np.asarray(batch["label"]), raw, batch["sample_valid"])
+            metrics_s += time.perf_counter() - t1
+            decode_s += t1 - t0
+            for key in ("precision", "recall", "type_acc", "accuracy",
+                        "type_acc_coedge_seq"):
+                agg.setdefault(key, []).extend(out[key])
+            if logger is not None and text_dumps < 4:
+                # qualitative pred-vs-label dumps (reference trainer.py:100-101)
+                for pred, label, prec in zip(out["predictions"], out["labels"],
+                                             out["precision"]):
+                    logger.log_text(
+                        "result",
+                        f"pred: {pred} \n\n label: {label} \n\n precision: {prec}",
+                        step + text_dumps)
+                    text_dumps += 1
+                    if text_dumps >= 4:
+                        break
+        self.eval_seconds = {"decode": decode_s, "metrics": metrics_s}
+        results = {
+            "valid_precision": _mean(agg.get("precision", [])),
+            "valid_recall": _mean(agg.get("recall", [])),
+            "valid_type_acc": _mean(agg.get("type_acc", [])),
+            "valid_accuracy": _mean(agg.get("accuracy", [])),
+            "valid_type_acc_coedge_seq": _mean(agg.get("type_acc_coedge_seq", [])),
+        }
+        if logger is not None:
+            logger.log_scalars(step, results)
+        print(" ".join(f"{k}={v:.4f}" for k, v in results.items()), flush=True)
+        return results
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def test(self, model, json_dir: Optional[str] = None) -> Dict[str, float]:
+        """Test loop: metrics + per-sample prediction JSONs + decode timing
+        (reference: trainer.py:105-136)."""
+        ds, batches = self._eval_batches("test")
+        json_dir = json_dir or os.path.join(self.log_dir, "json")
+        os.makedirs(json_dir, exist_ok=True)
+
+        agg: Dict[str, List[float]] = {}
+        total_time, sample_count = 0.0, 0
+        warmed = False
+        for batch in batches:
+            device_batch = self._upload(batch)
+            if not warmed:
+                # untimed warm-up on the first batch: the first call loads
+                # the kernels' libraries and fills the allocator's caches
+                self._decode(model, device_batch)
+                warmed = True
+            self._sync()
+            t0 = time.perf_counter()
+            out_grid = self._decode(model, device_batch)
+            self._sync()
+            total_time += time.perf_counter() - t0
+            predict = out_grid.cpu().numpy()
+            sample_valid = batch["sample_valid"]
+            sample_count += int(np.sum(sample_valid))
+
+            raw = [ds.raw_datas[i] for i in batch["id"]]
+            out = self.metrics_engine.evaluate_batch(
+                predict, np.asarray(batch["label"]), raw, sample_valid)
+            for key in ("precision", "recall", "type_acc"):
+                agg.setdefault(key, []).extend(out[key])
+
+            valid_idx = [i for i, ok in enumerate(sample_valid) if ok]
+            for res_i, batch_i in enumerate(valid_idx):
+                name = os.path.splitext(os.path.basename(batch["name"][batch_i]))[0]
+                record = {
+                    "edges": raw[batch_i]["edges"],
+                    "dominant_directions": raw[batch_i]["dominant_directions"],
+                    "pred_faces": out["predictions"][res_i],
+                    "label_faces": out["labels"][res_i],
+                }
+                with open(os.path.join(json_dir, f"{name}.json"), "w") as f:
+                    json.dump(record, f, cls=NumpyJSONEncoder)
+
+        results = {
+            "test_precision": _mean(agg.get("precision", [])),
+            "test_recall": _mean(agg.get("recall", [])),
+            "test_type_acc": _mean(agg.get("type_acc", [])),
+            "avg_time_per_sample": total_time / max(sample_count, 1),
+            "num_samples": sample_count,
+        }
+        print("Avg Time", results["avg_time_per_sample"], "seconds.")
+        print(" ".join(f"{k}={v:.4f}" for k, v in results.items() if k != "num_samples"),
+              flush=True)
+        # persist: results.json + metrics.jsonl, so quality claims are
+        # auditable from files (not just stdout)
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, "results.json"), "w") as f:
+            json.dump(results, f, indent=2)
+        logger = MetricsLogger(self.log_dir)
+        logger.log_scalars(0, dict(results))
+        logger.close()
+        return results
+
+    # -- checkpoints ---------------------------------------------------------------
+
+    def load(self, path: str) -> Dict[str, Any]:
+        """A state from a checkpoint: the port's own file (model, Adam,
+        epoch, step), or a reference PyTorch .ckpt/.pt/.pth state dict
+        (weights only; a fresh Adam, epoch 0)."""
+        state = self.init_state()
+        if path.endswith((".ckpt", ".pt", ".pth")):
+            tree = load_torch_checkpoint(path, self.cfg.model.num_encoder_layers,
+                                         self.cfg.model.num_decoder_layers)
+            params_from_jax(state["model"], tree)
+            return state
+        tree, _ = load_checkpoint(path, map_location=self.device)
+        state["model"].load_state_dict(tree["model"])
+        state["optimizer"].load_state_dict(tree["optimizer"])
+        state["epoch"] = int(tree.get("epoch", 0))
+        state["step"] = int(tree.get("step", 0))
+        return state
+
+
+def _mean(values: List[float]) -> float:
+    return float(np.mean(values)) if values else 0.0

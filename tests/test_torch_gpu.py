@@ -216,8 +216,28 @@ def test_flash_dropout_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal
 def test_flash_bwd_kernel_on_card(cuda_device, dtype, tol, rate, n, sq, sk, causal):
     """K3 against its plain version: dq, dk, dv relative to each tensor's
     largest magnitude, bitwise repeatable, and sensitive to the seed."""
-    h = 8 if sq >= 40 else 4
-    q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=h)
+    check_flash_bwd(cuda_device, dtype, tol, rate, n, sq, sk, causal,
+                    h=8 if sq >= 40 else 4, hd=64)
+
+
+# K3 at hd = 32 (d = 256 over 8 heads, configs/step-native.yml: L = 160,
+# T = 32), which runs the CUDA-core kernels in both dtypes: the causal
+# decoder rows, the encoder, the anchor-folded cross-attention, and a
+# ragged case off the 16-key grid
+FLASH_SHAPES_HD32 = [(64, 32, 32, True), (2, 164, 164, False), (1, 5120, 164, False),
+                     (3, 50, 37, False)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,sq,sk,causal", FLASH_SHAPES_HD32)
+def test_flash_bwd_kernel_on_card_hd32(cuda_device, dtype, tol, rate, n, sq, sk, causal):
+    """K3 at hd = 32 against its plain version, as at hd = 64."""
+    check_flash_bwd(cuda_device, dtype, tol, rate, n, sq, sk, causal, h=8, hd=32)
+
+
+def check_flash_bwd(cuda_device, dtype, tol, rate, n, sq, sk, causal, h, hd):
+    q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=h, hd=hd)
     _, lse = flash_attention_fwd(q, k, v, bias, causal=causal, impl="plain", dropout_rate=rate,
                                  seed=9)
     kw = dict(causal=causal, dropout_rate=rate, seed=9)
