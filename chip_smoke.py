@@ -50,7 +50,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
      the exported .ckpt, the resume's steps 41-60, the kernels each run
      launched. Prints samples/s, host seconds, validate and test times,
      checkpoint cost, peak memory and launches;
-  6. one JSON summary of the kernels, the card line, and the result line.
+  6. the flat SurfaceFormer at the width of configs/synthetic-dirtok-big.yml
+     (d=512, 8 heads, FFN 1024, 6+6 layers, S=116 memory rows,
+     label_seq_length 512, direction tokens, batch 32, bf16, dropout 0.2):
+     K2 and K3 past their whole-row kernels' shared memory (causal 512, a
+     ragged 1,000 keys, hd = 32) against their plain versions in both
+     dtypes with and without dropout, keep masks bit for bit, and two
+     planted tiling faults (the last key tile dropped; keep bits drawn at
+     the wrong key index) against the bf16 gates; K2 and K3 at the model's
+     three attention shapes (the checks of [2], then timed as in [4]); K1
+     at one row a sample; training (every gradient through the kernels
+     against the plain versions in fp32 at N=2, then 5 timed bf16 steps at
+     N=32 after 2 warm-ups: samples/s, the step's split, peak memory,
+     launches, one profiled step); serving with early stop off (causal_cache
+     timed at N=32 with a profiled decode, reference at N=4; each engine's
+     fp32 grid through the kernels equal to the plain versions', bf16 grids
+     parting only at near-ties); the command line (a 350-solid
+     direction-token corpus, one epoch of fit with validation and a
+     checkpoint, test with causal_cache, predict on four wireframes);
+  7. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
@@ -507,6 +525,82 @@ def check_flash_train(rng, dev, label, n_full, sq, sk, causal, n, h, hd):
     return worst_fwd, worst_bwd
 
 
+def flash_libraries():
+    """K2's and K3's libraries with their sizing entries bound."""
+    from faceformer_tpu_torch.ops import _build
+
+    flash_lib = _build.load("flash")
+    flash_lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
+    flash_lib.flash_smem_bytes.restype = ctypes.c_size_t
+    k3_lib = _build.load("flash_bwd")
+    k3_lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    k3_lib.flash_bwd_smem_bytes.restype = ctypes.c_size_t
+    k3_lib.flash_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 7
+    k3_lib.flash_bwd_workspace_bytes.restype = ctypes.c_size_t
+    return flash_lib, k3_lib
+
+
+def time_flash_call(label, q, k, v, do, bias, causal, flash_lib, k3_lib):
+    """K3 (and K2 with dropout) at one training shape, bf16, dropout on:
+    kernel, plain version, the library's one-call yardstick (its forward
+    with the same mask and dropout; ``autograd.grad`` through it) and the
+    card's bound. Returns (K2's row, K3's row)."""
+    import torch
+    from faceformer_tpu_torch.ops.flash import flash_attention_bwd, flash_attention_fwd
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf, dev, neg = q.dtype, q.device, float(np.finfo(np.float32).min)
+    n3, sq, h, hd = q.shape
+    sk = k.shape[1]
+    kw = dict(causal=causal, dropout_rate=TRAIN_RATE, seed=1234)
+    lse = flash_attention_fwd(q, k, v, bias, **kw)[1]
+    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, **kw), iters=5)
+    fwd0_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, causal=causal), iters=5)
+    fwd_plain = time_ms(lambda: flash_attention_fwd(q, k, v, bias, impl="plain", **kw),
+                        iters=2, warmup=1)
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, **kw), iters=5)
+    ms0 = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, causal=causal), iters=5)
+    plain = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, impl="plain", **kw),
+                    iters=2, warmup=1)
+    # the library's backward alone: one autograd.grad through its attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    mask4 = bias[:, None, None, :]
+    if causal:
+        above = torch.ones((sq, sk), dtype=torch.bool, device=dev).triu(1)
+        mask4 = mask4.expand(n3, 1, sq, sk).masked_fill(above, neg)
+    mask4 = mask4.to(bf)
+    # the library's forward with the same mask and dropout, timed alike
+    with torch.no_grad():
+        fwd_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask4, dropout_p=TRAIN_RATE),
+                          iters=5)
+    out = sdpa(qt, kt, vt, attn_mask=mask4, dropout_p=TRAIN_RATE)
+    dot = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                  iters=5)
+    # the (query, key) pairs the function needs: under the causal mask only
+    # keys j <= i of query i (the kernels skip the tiles above the diagonal)
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    moved = nbytes(q, k, v, do, lse, bias) + nbytes(q, k, v)
+    b, by = bound_ms(moved, 5 * 2.0 * n3 * h * pairs * hd, bf)
+    fb, fby = bound_ms(nbytes(q, k, v, bias, q, lse), 2 * 2.0 * n3 * h * pairs * hd, bf)
+    smem = k3_lib.flash_bwd_smem_bytes(1, sk, hd)
+    work = k3_lib.flash_bwd_workspace_bytes(1, n3, sq, sk, h, hd, 1)
+    k3_row = dict(ms=ms, ms_no_dropout=ms0, plain_ms=plain, library_ms=lib, bound_ms=b,
+                  bound_by=by, smem_bytes=smem, workspace_bytes=work)
+    k2_row = dict(ms=fwd_ms, ms_no_dropout=fwd0_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
+                  bound_ms=fb, bound_by=fby, smem_bytes=flash_lib.flash_smem_bytes(1, sk, hd))
+    print(f"[4] flash_bwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
+          f"{TRAIN_RATE}: kernel {ms:.4f} ms (dropout 0: {ms0:.4f}), plain {plain:.4f} ms, "
+          f"library backward {lib:.4f} ms, bound {b:.5f} ms ({by}); dynamic shared memory "
+          f"{smem} B a block, keep-bit workspace {work} B", flush=True)
+    print(f"[4] flash_fwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
+          f"{TRAIN_RATE}: kernel {fwd_ms:.4f} ms (dropout 0: {fwd0_ms:.4f}), plain "
+          f"{fwd_plain:.4f} ms, library {fwd_lib:.4f} ms (same mask and dropout), bound "
+          f"{fb:.5f} ms ({fby}); dynamic "
+          f"shared memory {k2_row['smem_bytes']} B a block", flush=True)
+    return k2_row, k3_row
+
+
 def decode_inputs(model, cfg, rng, dev, dtype, n, step):
     """A mid-decode state: random memory and padding, cross K/V from the
     model, a seeded cache with positions < step filled."""
@@ -792,6 +886,36 @@ def k4_gemm_phase(inp, mc, rng, dev):
           f"bound {b_ms:.5f} ms ({b_by}; {via_hbm:.5f} ms with every activation through "
           f"device memory)", flush=True)
     return phase
+
+
+def k4_pointer_phase(rng, dev, n, r, s, e):
+    """K4's pointer phase alone (its last phase, on K1's kernel): fp32
+    pointer rows against bf16 memory with the padding as an additive bias,
+    the argmax and the gather of the winning rows, through the test entry
+    ``pointer_argmax_gather``; beside the library's matmul + masked_fill +
+    argmax + gather at the same shapes, and the bound."""
+    import torch
+    from faceformer_tpu_torch.decode import NEG
+    from faceformer_tpu_torch.ops.pointer import pointer_argmax_gather
+
+    rows = torch.as_tensor(rng.standard_normal((n, r, e)), dtype=torch.float32, device=dev)
+    memory = torch.as_tensor(rng.standard_normal((n, s, e)), dtype=torch.bfloat16, device=dev)
+    mask = padding(rng, n, s, dev)
+    bias = torch.where(mask, NEG, 0.0).to(torch.float32)
+
+    def library():
+        logits = torch.matmul(rows, memory.transpose(1, 2).float())
+        idx = logits.masked_fill(mask[:, None, :], NEG).argmax(-1)
+        return torch.gather(memory, 1, idx[..., None].expand(-1, -1, e))
+
+    b, by = bound_ms(nbytes(rows, memory, bias) + n * r * (4 + 2 * e), 2.0 * n * r * s * e,
+                     torch.bfloat16)
+    row = dict(ms=time_ms(lambda: pointer_argmax_gather(rows, memory, bias=bias)),
+               library_ms=time_ms(library), bound_ms=b, bound_by=by)
+    print(f"[4] K4 pointer phase rows ({n},{r},{e}) fp32, memory ({n},{s},{e}) bf16, bias, "
+          f"gather: kernel {row['ms']:.4f} ms, library (matmul + masked_fill + argmax + "
+          f"gather) {row['library_ms']:.4f} ms, bound {b:.5f} ms ({by})", flush=True)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1168,7 +1292,7 @@ print("CLI_STATS " + json.dumps({"launches": ops.LAUNCHES, "max_memory_allocated
 """
 
 
-def run_cli(cwd, label, module, *argv, timeout=900):
+def run_cli(cwd, label, module, *argv, timeout=900, tag="[5]"):
     """``python -m module argv`` in a subprocess run from ``cwd`` (logs/
     lands there); fails on a non-zero exit. Returns (stdout, launch counts
     and peak memory, wall seconds)."""
@@ -1184,7 +1308,7 @@ def run_cli(cwd, label, module, *argv, timeout=900):
     stats = [line for line in proc.stdout.splitlines() if line.startswith("CLI_STATS ")]
     stats = json.loads(stats[-1][len("CLI_STATS "):])
     launched_now = {k: v for k, v in stats["launches"].items() if v}
-    print(f"[5] {label}: rc 0 in {wall:.1f} s, launches {launched_now}, max_memory_allocated "
+    print(f"{tag} {label}: rc 0 in {wall:.1f} s, launches {launched_now}, max_memory_allocated "
           f"{stats['max_memory_allocated']}", flush=True)
     return proc.stdout, stats, wall
 
@@ -1414,11 +1538,710 @@ def run_cli_phase(train_rates):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the flat SurfaceFormer at the synthetic-dirtok-big width
+# ---------------------------------------------------------------------------
+
+FLAT_CONFIG = os.path.join(REPO, "configs", "synthetic-dirtok-big.yml")
+# the corpus of synthetic-dirtok-big.yml (its header's generator flags) cut
+# from 8,192 solids to 350: the seeded split gives 325 / 7 / 18, 10 steps an
+# epoch at batch 32
+FLAT_NUM, FLAT_SPLIT = 350, (325, 7, 18)
+FLAT_GEN = ("--num", str(FLAT_NUM), "--seed", "3", "--profile", "rich", "--direction_token",
+            "--max_edges", "110", "--max_faces", "42", "--max_label_len", "508")
+# K2 and K3 past their whole-row kernels' shared memory (label, n, sq, sk,
+# causal, heads, hd): the flat decoder self-attention's length, a ragged
+# 1,000 keys off the 128-key tile, and hd = 32 (d = 256 over 8 heads)
+LONG_KEY_SHAPES = (("causal-512", 2, 512, 512, True, 8, 64),
+                   ("ragged-1000", 2, 300, 1000, False, 8, 64),
+                   ("hd32-causal-1500", 1, 1500, 1500, True, 8, 32))
+# the three attention calls of the flat model's training step at N = 32
+# (label, sequences, Sq, Sk, causal, sequences the plain side is run at)
+FLAT_SHAPES = (("flat-encoder", 32, 116, 116, False, 32),
+               ("flat-decoder-self", 32, 512, 512, True, 8),
+               ("flat-cross", 32, 512, 116, False, 8))
+
+
+def long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd):
+    """q, k, v, do and a key-padding bias: sample 0 has every key, the
+    others lose up to a quarter at the end."""
+    import torch
+    from faceformer_tpu_torch.ops.flash import padding_mask_bias
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    valid = rng.integers(sk - sk // 4, sk + 1, size=n)
+    valid[0] = sk
+    mask = torch.as_tensor(np.arange(sk)[None, :] >= valid[:, None], device=dev)
+    return (randn(n, sq, h, hd), randn(n, sk, h, hd), randn(n, sk, h, hd), randn(n, sq, h, hd),
+            padding_mask_bias(mask.contiguous()))
+
+
+def tiling_faults(tile, sk, causal):
+    """Faults of a key-tiled kernel the gates must reject, made by editing
+    what the kernel is given while the plain version keeps the truth:
+    (label, dropout rate, edit(args) -> (args, fix(*outputs) or None))."""
+    import torch
+
+    last = (sk - 1) // tile * tile
+
+    def last_tile_dropped(a):
+        bias = a["bias"].clone()
+        bias[:, last:] = float(np.finfo(np.float32).min)
+        return {**a, "bias": bias}, None
+
+    def keep_bits_shifted(a):
+        # without a causal mask attention does not care where a key sits,
+        # except for its keep bits: a kernel given keys rolled by one tile
+        # draws each key's bits at the wrong j, as a kernel that used a
+        # tile-local index would
+        def roll(x):
+            return x.roll(tile, dims=1).contiguous()
+
+        def unroll(*outputs):
+            if len(outputs) == 2:  # K2: out, lse do not depend on key order
+                return outputs
+            dq, dk, dv = outputs
+            return dq, dk.roll(-tile, dims=1), dv.roll(-tile, dims=1)
+
+        return {**a, "k": roll(a["k"]), "v": roll(a["v"]), "bias": roll(a["bias"])}, unroll
+
+    faults = [("last key tile dropped", 0.0, last_tile_dropped)]
+    if not causal:
+        faults.append(("keep bits at the wrong key index", TRAIN_RATE, keep_bits_shifted))
+    return faults
+
+
+def k3_rejects(got, want):
+    """(rejected by the bf16 gates, largest and mean relative error)."""
+    errs = [rel_errors(a, b) for a, b in zip(got, want)]
+    e_max, e_mean = max(e[0] for e in errs), max(e[1] for e in errs)
+    return e_max > K3_BF16_MAX or e_mean > K3_BF16_MEAN, e_max, e_mean
+
+
+def check_long_keys(rng, dev, label, n, sq, sk, causal, h, hd):
+    """K2 and K3 past the whole-row kernels' reach against their plain
+    versions, fp32 and bf16, dropout 0 and TRAIN_RATE: the gates of [2],
+    the keep mask the forward applied bit for bit, bitwise repeatable; in
+    bf16 the tiling faults against the gates. Returns the largest bf16
+    absolute errors (forward, backward)."""
+    import torch
+    from faceformer_tpu_torch.ops.flash import (flash_attention_bwd, flash_attention_fwd,
+                                                key_tile, philox_keep_mask)
+
+    seed = int(rng.integers(2 ** 62))
+    worst_fwd = worst_bwd = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tiles = (key_tile("fwd", dtype, sk, hd), key_tile("bwd", dtype, sk, hd))
+        shape = (f"{label} q({n},{sq},{h},{hd}) k({n},{sk}) causal={causal} {dtype} "
+                 f"(key tiles: K2 {tiles[0] or 'whole'}, K3 dq {tiles[1] or 'whole'})")
+        q, k, v, do, bias = long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd)
+        for rate in (0.0, TRAIN_RATE):
+            kw = dict(causal=causal, dropout_rate=rate, seed=seed)
+            out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, **kw)
+            out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
+            again = flash_attention_fwd(q, k, v, bias, **kw)
+            e_out = float((out.float() - out_p.float()).abs().max())
+            e_lse = float((lse - lse_p).abs().max())
+            tol = K2_BF16_TOL if bf16 else 1e-4
+            wrong = 0
+            if rate:
+                kept, live = kernel_keep_mask(q, k, v, bias, causal, seed)
+                plain_mask = philox_keep_mask(seed, n, h, sq, sk, rate, device=dev)
+                wrong = int(((kept != plain_mask) & live).sum())
+                del kept, live, plain_mask
+            args = dict(q=q, k=k, v=v, bias=bias, lse=lse_p, dout=do, **kw)
+            got = launched("flash_bwd", flash_attention_bwd, **args)
+            want = flash_attention_bwd(**args, impl="plain")
+            repeat = flash_attention_bwd(**args)
+            torch.cuda.synchronize()
+            errs = [rel_errors(a, b) for a, b in zip(got, want)]
+            e_max, e_mean = max(e[0] for e in errs), max(e[1] for e in errs)
+            equal = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                     and all(torch.equal(a, b) for a, b in zip(got, repeat)))
+            print(f"[6] long keys {shape} dropout {rate}: K2 out err {e_out:.3g} lse err "
+                  f"{e_lse:.3g} (<= {tol}); keep-mask entries off the plain mask {wrong}; K3 "
+                  f"relative err max {e_max:.3g} mean {e_mean:.3g} (<= "
+                  f"{K3_BF16_MAX if bf16 else 1e-4}); repeats bitwise equal {equal}", flush=True)
+            if not (e_out <= tol and e_lse <= tol):
+                fail(f"K2 long keys {label} {dtype} dropout {rate}: beyond {tol}")
+            if wrong:
+                fail(f"K2 long keys {label} {dtype}: the kernel's keep mask is not the plain one")
+            if bf16 and (e_max > K3_BF16_MAX or e_mean > K3_BF16_MEAN) or (
+                    not bf16 and e_max > 1e-4):
+                fail(f"K3 long keys {label} {dtype} dropout {rate}: beyond the gates")
+            if not equal or not all(torch.isfinite(g.float()).all() for g in got):
+                fail(f"K2/K3 long keys {label} {dtype}: not repeatable or not finite")
+            if bf16:
+                worst_fwd = max(worst_fwd, e_out, e_lse)
+                worst_bwd = max(worst_bwd, max(e[2] for e in errs))
+            del out, lse, out_p, lse_p, again, got, want, repeat
+        for kernel, tile in (("K2", tiles[0]), ("K3", tiles[1])):
+            if not (bf16 and tile):
+                continue
+            for name, rate, edit in tiling_faults(tile, sk, causal):
+                kw = dict(causal=causal, dropout_rate=rate, seed=seed)
+                out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
+                if kernel == "K2":
+                    edited, fix = edit(dict(q=q, k=k, v=v, bias=bias, **kw))
+                    got = flash_attention_fwd(**edited)
+                    got = fix(*got) if fix else got
+                    e = max(float((got[0].float() - out_p.float()).abs().max()),
+                            float((got[1] - lse_p).abs().max()))
+                    caught, line = e > K2_BF16_TOL, f"err {e:.3g} (gate {K2_BF16_TOL})"
+                else:
+                    args = dict(q=q, k=k, v=v, bias=bias, lse=lse_p, dout=do, **kw)
+                    want = flash_attention_bwd(**args, impl="plain")
+                    edited, fix = edit(args)
+                    got = flash_attention_bwd(**edited)
+                    got = fix(*got) if fix else got
+                    caught, e_max, e_mean = k3_rejects(got, want)
+                    line = f"relative err max {e_max:.3g} mean {e_mean:.3g}"
+                print(f"[6] {kernel} bf16 tiling fault '{name}' {label} (tile {tile} keys) "
+                      f"dropout {rate}: {line}; "
+                      f"{'rejected' if caught else 'PASSES THE GATE'}", flush=True)
+                if not caught:
+                    fail(f"{kernel} bf16 gates pass a kernel with '{name}' at {label}")
+                del got, out_p, lse_p
+        del q, k, v, do, bias
+    return worst_fwd, worst_bwd
+
+
+def flat_samples(rng, mc, count):
+    """``count`` seeded direction-token solids of the rich profile that fit
+    the config: at most num_lines edges, labels within label_seq_length."""
+    from faceformer_tpu_torch.data.packing import pack_label_single
+    from faceformer_tpu_torch.geometry.fixtures import random_sample
+
+    samples = []
+    while len(samples) < count:
+        sample = random_sample(rng, profile="rich", direction_token=True)
+        if len(sample["edges"]) > mc.num_lines:
+            continue
+        try:
+            pack_label_single(sample["faces_indices"], mc)
+        except ValueError:
+            continue
+        samples.append(sample)
+    return samples
+
+
+def flat_batch(samples, mc, dev, labels=True):
+    import torch
+    from faceformer_tpu_torch.data.batching import collate
+    from faceformer_tpu_torch.data.dataset import ABCDataset
+    from faceformer_tpu_torch.data.packing import pack_input_edges
+
+    if labels:
+        ds = ABCDataset.from_samples(samples, mc)
+        items = [ds[i] for i in range(len(samples))]
+    else:
+        items = [pack_input_edges(s["edges"], mc) for s in samples]
+    return {k: torch.as_tensor(v).to(dev) for k, v in collate(items).items()
+            if not isinstance(v, (list, str))}
+
+
+def run_flat_training(model, cfg, batch, seed):
+    """The flat model's training step at the config's width: every
+    gradient through the kernels against the plain versions (fp32, N = 2),
+    then bf16 steps at N = 32 with dropout: samples/s over 5 timed steps
+    after 2 warm-ups, the step's split by CUDA events, peak memory, launches
+    and one profiled step. Returns (launches of the timed steps, samples/s)."""
+    import torch
+    from faceformer_tpu_torch import ops
+    from faceformer_tpu_torch.train.loss import pointer_cross_entropy
+    from faceformer_tpu_torch.train.step import make_optimizer, train_step
+
+    mc = cfg.model
+    per_step = mc.num_encoder_layers + 2 * mc.num_decoder_layers
+    small = {k: v[:2] for k, v in batch.items()}
+    grads = {}
+    for impl in ("auto", "plain"):
+        model.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        out = model.forward_train(small, precision="fp32", impl=impl)
+        loss, _ = pointer_cross_entropy(out, mc.token)
+        loss.backward()
+        torch.cuda.synchronize()
+        if impl == "auto":
+            expect_launches("flat fp32 N=2 gradients through the kernels", per_step, per_step)
+        grads[impl] = {name: p.grad.clone() for name, p in model.named_parameters()}
+    errs, noise = {}, {}
+    for name, g in grads["auto"].items():
+        d = float((g - grads["plain"][name]).abs().max())
+        if name.endswith("attn.k.bias"):
+            noise[name] = max(d, float(g.abs().max()), float(grads["plain"][name].abs().max()))
+        else:
+            errs[name] = d / float(grads["plain"][name].abs().max())
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[6] flat train fp32 N=2: loss {float(loss.detach()):.6f}; {len(errs)} gradient "
+          f"leaves, kernels vs plain, largest relative error per leaf: "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in worst)} (gate 1e-3); key-bias leaves "
+          f"{max(noise.values()):.3g} (gate 1e-5)", flush=True)
+    if (max(errs.values()) > 1e-3 or max(noise.values()) > 1e-5
+            or not all(torch.isfinite(g).all() for g in grads["auto"].values())):
+        fail("flat train fp32: a gradient through the kernels differs from the plain versions")
+    model.zero_grad(set_to_none=True)
+    del grads
+
+    tcfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, precision="bf16"))
+    optimizer = make_optimizer(model, tcfg.trainer)
+    dgen = torch.Generator().manual_seed(seed + 1)
+    for _ in range(2):
+        train_step(model, optimizer, batch, dgen, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    steps = 5
+    t0 = time.perf_counter()
+    losses = [train_step(model, optimizer, batch, dgen, tcfg)[0] for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = dict(ops.LAUNCHES)
+    expect_launches(f"flat, {steps} bf16 steps, dropout {mc.dropout}", steps * per_step,
+                    steps * per_step)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        fail("flat train bf16: a loss is not finite")
+    split = np.mean([timed_step(model, optimizer, batch, dgen, tcfg) for _ in range(3)], axis=0)
+    n = batch["label"].shape[0]
+    rate = n / step_s
+    print(f"[6] flat train N={n} bf16 dropout {mc.dropout} lr {tcfg.trainer.lr}: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; samples/s={rate:.2f} "
+          f"step_ms={step_s * 1e3:.2f} forward_ms={split[0]:.2f} backward_ms={split[1]:.2f} "
+          f"optimizer_ms={split[2]:.2f} max_memory_allocated={peak} "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    profile_call("flat train step", lambda: train_step(model, optimizer, batch, dgen, tcfg),
+                 top=10)
+    return launches, rate
+
+
+# The bf16 grids of a flat engine through the kernels and through the plain
+# versions may part where a step's two best pointer logits lie closer than
+# bf16 rounding elsewhere moves them (K2's tensor cores against the plain
+# einsum in the encoder, six layers deep). The replay must write both
+# grids. At each parting each path's own fp32 logits must prefer its own
+# token (by at least -FLAT_OWN_MIN: K1 picks the argmax of the logits it is
+# given, up to fp32 summation order) and by at most FLAT_TIE_MAX; on every
+# step before a parting the two paths' logits may differ by at most
+# FLAT_DIFF_MAX. Fixed limits, from the readings of
+# ``chip_smoke.py --tie-readings`` (PERF.md §6), not from the run being
+# checked: FLAT_TIE_MAX near the largest 99th percentile of the logit
+# differences there (0.3052), FLAT_DIFF_MAX about twice their largest
+# (0.4642).
+FLAT_OWN_MIN = 1e-3
+FLAT_TIE_MAX = 0.3
+FLAT_DIFF_MAX = 1.0
+
+
+def flat_replay(model, mc, batch, forced, mode, impl):
+    """The flat engine ``mode`` of decode.py::greedy_decode_single (bf16,
+    retire_rows, early stop off) step for step through ``impl``, its calls
+    in its order, but fed at each step the token of ``forced`` (N, T)
+    where the engine feeds the one it wrote: on a row's prefix of
+    ``forced`` each step is the engine's own. Returns the tokens it writes
+    (N, T) and every step's fp32 pointer logits (T - 1, N, S), padded
+    rows at -inf."""
+    import torch
+    from faceformer_tpu_torch.decode import (
+        _cross_kv,
+        _incremental_decoder_step,
+        _prefix_buckets,
+        _single_next,
+    )
+    from faceformer_tpu_torch.models import layers as L
+    from faceformer_tpu_torch.models.common import encode, gather_memory_rows, masked_argmax
+
+    dtype, tok, t_max = torch.bfloat16, mc.token, mc.label_seq_length
+    with torch.no_grad():
+        memory, pos, mask = encode(model, mc, batch["input"], batch["input_mask"], dtype,
+                                   impl=impl)
+        n, dev = memory.shape[0], memory.device
+        query_pos = model.query_pos_table.to(dtype)
+        tokens = torch.full((n, t_max), tok.PAD, dtype=torch.int32, device=dev)
+        tokens[:, 0] = tok.SOS
+        written = tokens.clone()
+        eos = torch.zeros(n, dtype=torch.bool, device=dev)
+        logits = torch.empty((t_max - 1, n, memory.shape[1]), device=dev)
+        if mode == "causal_cache":
+            cross_k, cross_v = _cross_kv(model, memory, pos, mc.num_head)
+            shape = (n, t_max, mc.num_head, mc.num_model // mc.num_head)
+            sk, sv = ([torch.zeros(shape, dtype=dtype, device=dev)
+                       for _ in range(mc.num_decoder_layers)] for _ in range(2))
+        buckets = _prefix_buckets(t_max)
+        for step in range(t_max - 1):
+            if mode == "causal_cache":
+                x = gather_memory_rows(memory, tokens[:, step:step + 1])
+                out = _incremental_decoder_step(model, mc, x, query_pos[step:step + 1], step,
+                                                sk, sv, cross_k, cross_v, mask)[:, 0]
+            else:
+                bucket = next(b for b in buckets if step <= min(b - 2, t_max - 2))
+                tgt = gather_memory_rows(memory, tokens[:, :bucket])
+                prefix_pad = (torch.arange(bucket, device=dev) > step)[None, :]
+                out = L.decoder_forward(
+                    model.decoder, tgt, memory, query_pos[None, :bucket], pos,
+                    num_head=mc.num_head, activation=mc.activation,
+                    normalize_before=mc.normalize_before, tgt_key_padding_mask=prefix_pad,
+                    memory_key_padding_mask=mask, impl=impl)[:, step]
+            pointer_t = L.linear(model.project, out)  # (N, E)
+            logits[step] = torch.einsum("nse,ne->ns", memory.float(), pointer_t.float()
+                                        ).masked_fill(mask, float("-inf"))
+            nxt, eos = _single_next(masked_argmax(memory, pointer_t, mask, impl=impl), eos,
+                                    tok, True)
+            written[:, step + 1] = nxt
+            tokens[:, step + 1] = forced[:, step + 1]
+    return written, logits
+
+
+def flat_partings(model, mc, batch, g_k, g_p, mode):
+    """Replays both bf16 decodes of one engine (``flat_replay``: through the
+    kernels fed g_k, through the plain versions fed g_p), fails unless each
+    replay writes its engine's grid, and returns (rows that part, each
+    parting's pair of preferences: the kernels' logits for the kernels'
+    token over the plain token, the plain logits for the plain token over
+    the kernels'; and over every step before a parting, where both paths
+    read the same prefix: the largest logit difference between the two
+    paths (median, 99th percentile, max) and the share of steps whose two
+    best logits lie within FLAT_TIE_MAX in either path)."""
+    import torch
+
+    w_k, l_k = flat_replay(model, mc, batch, g_k, mode, "auto")
+    w_p, l_p = flat_replay(model, mc, batch, g_p, mode, "plain")
+    if not (torch.equal(w_k, g_k) and torch.equal(w_p, g_p)):
+        fail(f"flat {mode} bf16: the replay does not write the engine's grid (kernels "
+             f"{torch.equal(w_k, g_k)}, plain versions {torch.equal(w_p, g_p)})")
+    steps, n = l_k.shape[:2]
+    differ = g_k != g_p
+    parts = torch.where(differ.any(1), differ.int().argmax(1), steps + 1)  # first column
+    shared = torch.arange(steps, device=g_k.device)[:, None] < parts[None, :] - 1  # (T-1, N)
+    live = torch.isfinite(l_k)
+    diff = (l_k - l_p).abs().where(live, torch.zeros_like(l_k)).amax(-1)[shared]
+    near = torch.zeros_like(shared)
+    for l in (l_k, l_p):
+        top2 = l.topk(2, dim=-1).values
+        near |= (top2[..., 0] - top2[..., 1]) <= FLAT_TIE_MAX
+    q = torch.quantile(diff, torch.tensor([0.5, 0.99], device=diff.device))
+    stats = dict(median=float(q[0]), p99=float(q[1]), max=float(diff.max()),
+                 near_share=float(near[shared].float().mean()), steps=int(shared.sum()))
+    found = []
+    for row in differ.any(1).nonzero()[:, 0].tolist():
+        t = int(parts[row])
+        a, b = int(g_k[row, t]), int(g_p[row, t])
+        found.append((float(l_k[t - 1, row, a] - l_k[t - 1, row, b]),
+                      float(l_p[t - 1, row, b] - l_p[t - 1, row, a])))
+    return found, stats
+
+
+def flat_tie_readings(seeds, dev):
+    """``--tie-readings``: the readings FLAT_TIE_MAX and FLAT_DIFF_MAX are
+    set from. [6]'s flat model (same init) takes as many bf16 training steps
+    as [6] takes before it serves (11; the pointer logits' scale, and with
+    it bf16's noise, changes as the model trains), on 32 samples of seed 0;
+    then, for each seed, 32 seeded samples decoded in bf16, early stop off,
+    by both engines (causal_cache at N = 32, reference at N = 8) through the
+    kernels and through the plain versions. Prints ``flat_partings``'
+    readings as JSON lines; checks only that each replay writes its
+    engine's grid."""
+    import torch
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
+    from faceformer_tpu_torch.params import jitter_affine_
+    from faceformer_tpu_torch.train.step import make_optimizer, train_step
+
+    cfg = load_config(FLAT_CONFIG)
+    mc = cfg.model
+    gen = torch.Generator().manual_seed(0)
+    model = SurfaceFormer(mc, generator=gen, device=dev)
+    jitter_affine_(model, gen)
+    tcfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, precision="bf16"))
+    optimizer = make_optimizer(model, tcfg.trainer)
+    dgen = torch.Generator().manual_seed(1)
+    batch = flat_batch(flat_samples(np.random.default_rng(0), mc, 32), mc, dev)
+    losses = [float(train_step(model, optimizer, batch, dgen, tcfg)[0]) for _ in range(11)]
+    print(json.dumps(dict(train_losses=losses)), flush=True)
+    for seed in seeds:
+        batch = flat_batch(flat_samples(np.random.default_rng(seed), mc, 32), mc, dev,
+                           labels=False)
+        for mode, n in (("causal_cache", 32), ("reference", 8)):
+            part = {k: v[:n] for k, v in batch.items()}
+            g_k, g_p = (model.forward_eval(part, precision="bf16", mode=mode, early_stop=False,
+                                           impl=impl)["predict"] for impl in ("auto", "plain"))
+            found, stats = flat_partings(model, mc, part, g_k, g_p, mode)
+            print(json.dumps(dict(seed=seed, mode=mode, n=n,
+                                  agreement=float((g_k == g_p).float().mean()),
+                                  partings=found, **stats)), flush=True)
+
+
+def run_flat_serving(model, mc, samples, dev):
+    """Both engines of the flat model, early stop off (label_seq_length - 1
+    steps): causal_cache timed at N = 32 (tokens/s, launches, one profiled
+    decode), reference at N = 4; each engine's grid through the kernels
+    against its grid through the plain versions, equal in fp32 at N = 4,
+    and in bf16 parting only at near-ties (``flat_partings``). Returns
+    the launches of the timed decodes."""
+    import torch
+    from faceformer_tpu_torch import ops
+
+    steps = mc.label_seq_length - 1
+    launches = {}
+    for mode, n in (("causal_cache", 32), ("reference", 4)):
+        batch = flat_batch(samples[:n], mc, dev, labels=False)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        grid = model.forward_eval(batch, precision="bf16", mode=mode, early_stop=False)["predict"]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[mode] = dict(ops.LAUNCHES)
+        if grid.shape != (n, mc.label_seq_length) or bool((grid[:, 1:] < 0).any()):
+            fail(f"flat {mode}: grid {tuple(grid.shape)}")
+        if launches[mode]["pointer_argmax"] != steps or not launches[mode]["flash_fwd"]:
+            fail(f"flat {mode}: launches {launches[mode]}")
+        print(f"[6] flat engine={mode} N={n} bf16 early stop off: {steps} steps in {dt:.4f} s, "
+              f"tokens/s={n * steps / dt:.1f}, {dt / steps * 1e3:.3f} ms a step; launches "
+              f"{json.dumps({k: v for k, v in launches[mode].items() if v})}", flush=True)
+        if mode == "causal_cache":
+            profile_call(f"flat engine={mode} N={n}", lambda: model.forward_eval(
+                batch, precision="bf16", mode=mode, early_stop=False), top=8)
+        plain = model.forward_eval(batch, precision="bf16", mode=mode, early_stop=False,
+                                   impl="plain")["predict"]
+        found, stats = flat_partings(model, mc, batch, grid, plain, mode)
+        print(f"[6] flat engine={mode} bf16 kernels vs plain: cell agreement "
+              f"{float((grid == plain).float().mean()):.6f}, {len(found)} of {n} rows part; "
+              f"both replays write their engine's grids; at each parting the kernels' and "
+              f"the plain logits prefer their own token by "
+              f"{', '.join(f'{a:.4g} and {b:.4g}' for a, b in found) or '-'} "
+              f"(>= -{FLAT_OWN_MIN}, <= {FLAT_TIE_MAX}); over the {stats['steps']} steps "
+              f"before a parting the two paths' logits differ by median {stats['median']:.4g}, p99 "
+              f"{stats['p99']:.4g}, max {stats['max']:.4g} (<= {FLAT_DIFF_MAX}), and "
+              f"{stats['near_share']:.4%} of them have their two best logits within "
+              f"{FLAT_TIE_MAX}", flush=True)
+        if any(min(a, b) < -FLAT_OWN_MIN for a, b in found):
+            fail(f"flat {mode} bf16: a path picked a token its own logits do not prefer")
+        if any(max(a, b) > FLAT_TIE_MAX for a, b in found):
+            fail(f"flat {mode} bf16: the kernels and the plain versions part at a clear token")
+        if stats["max"] > FLAT_DIFF_MAX:
+            fail(f"flat {mode} bf16: the kernels' and the plain pointer logits differ by "
+                 f"{stats['max']:.4g} on a shared prefix")
+        small = {k: v[:4] for k, v in batch.items()}
+        g32 = {impl: model.forward_eval(small, precision="fp32", mode=mode, early_stop=False,
+                                        impl=impl)["predict"] for impl in ("auto", "plain")}
+        same = torch.equal(g32["auto"], g32["plain"])
+        print(f"[6] flat engine={mode} fp32 N=4: grid through the kernels equals the plain "
+              f"versions' {same}", flush=True)
+        if not same:
+            fail(f"flat {mode} fp32: the kernels' grid differs from the plain versions'")
+    return launches
+
+
+def run_flat_cli():
+    """The flat model through the command lines, each in a subprocess:
+    ``tools.synthetic_data`` writes the cut direction-token corpus; ``main``
+    fits one epoch (validation with causal_cache and a checkpoint after it)
+    and tests ``last``; ``tools.predict`` decodes four test wireframes.
+    Returns (launch counts summed over the runs, numbers)."""
+    import collections
+
+    from faceformer_tpu_torch.config import load_config
+
+    cfg = load_config(FLAT_CONFIG)
+    per_step = cfg.model.num_encoder_layers + 2 * cfg.model.num_decoder_layers
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flat_") as tmp:
+        syn = os.path.join(tmp, "dirtok")
+        run_cli(tmp, "synthetic_data --direction_token",
+                "faceformer_tpu_torch.tools.synthetic_data", "--root", syn, *FLAT_GEN, tag="[6]")
+        split = []
+        for name in ("train.txt", "valid.txt", "test.txt"):
+            with open(os.path.join(syn, name)) as f:
+                split.append(sum(1 for line in f if line.strip()))
+        if tuple(split) != FLAT_SPLIT:
+            fail(f"flat corpus split {split}, expected {FLAT_SPLIT}")
+        base = ("root_dir", syn, "trainer.name", "flat")
+        log = os.path.join(tmp, "logs", "flat")
+        last = os.path.join(log, "v0", "checkpoints", "last")
+
+        _, fit, _ = run_cli(tmp, "fit (1 epoch)", MAIN, "--config-file", FLAT_CONFIG, *base,
+                            "trainer.version", "v0", "trainer.max_epochs", "1",
+                            "trainer.checkpoint_period", "1", timeout=600, tag="[6]")
+        total.update(fit["launches"])
+        records = read_jsonl(os.path.join(log, "v0", "metrics.jsonl"))
+        losses = [(r["step"], r["train_loss"]) for r in records if "train_loss" in r]
+        steps = FLAT_SPLIT[0] // cfg.batch_size_train
+        timing = [r for r in records if "epoch_train_seconds" in r]
+        valid = [r for r in records if "valid_precision" in r]
+        print(f"[6] flat fit: train_loss {' '.join(f'{x:.4f}' for _, x in losses)}; "
+              f"validations {len(valid)}", flush=True)
+        if ([s for s, _ in losses] != list(range(1, steps + 1))
+                or not all(np.isfinite(x) for _, x in losses)):
+            fail(f"flat fit: train_loss at steps {[s for s, _ in losses]}")
+        if len(valid) != 1 or len(timing) != 1 or not os.path.isfile(last):
+            fail("flat fit: no validation, epoch timing or checkpoints/last")
+        if (fit["launches"]["flash_bwd"] != steps * per_step
+                or fit["launches"]["flash_fwd"] < steps * per_step
+                or fit["launches"]["pointer_argmax"] <= 0):
+            fail(f"flat fit: launches {fit['launches']}")
+
+        _, test, _ = run_cli(tmp, "test last (causal_cache)", MAIN, "--config-file", FLAT_CONFIG,
+                             "--test_ckpt", last, *base, "trainer.version", "test", tag="[6]")
+        total.update(test["launches"])
+        with open(os.path.join(log, "test", "results.json")) as f:
+            results = json.load(f)
+        tested = read_records(os.path.join(log, "test", "json"), FLAT_SPLIT[2])
+        if (test["launches"]["pointer_argmax"] <= 0 or not test["launches"]["flash_fwd"]
+                or test["launches"]["decode_step"]):
+            fail(f"flat test: launches {test['launches']}")
+        print(f"[6] flat test: {results}; faces predicted over the {FLAT_SPLIT[2]} solids "
+              f"{sum(len(json.loads(r)['pred_faces']) for r in tested.values())}", flush=True)
+
+        pred_in = os.path.join(tmp, "pred_in", "json")
+        os.makedirs(pred_in)
+        for name in sorted(tested)[:4]:
+            shutil.copy(os.path.join(syn, "json", name), pred_in)
+        _, pred, _ = run_cli(tmp, "predict (4 wireframes)", "faceformer_tpu_torch.tools.predict",
+                             "--config", FLAT_CONFIG, "--ckpt", last, "--root",
+                             os.path.dirname(pred_in), tag="[6]")
+        total.update(pred["launches"])
+        preds = read_records(os.path.join(os.path.dirname(pred_in), "pred", "json"), 4)
+        agree = all(json.loads(preds[k])["pred_faces"] == json.loads(tested[k])["pred_faces"]
+                    for k in preds)
+        print(f"[6] flat predict: 4 JSONs, pred_faces equal to the test's: {agree}", flush=True)
+        if not agree or pred["launches"]["pointer_argmax"] <= 0:
+            fail(f"flat predict: launches {pred['launches']}, faces agree {agree}")
+
+        t = timing[0]
+        numbers = {
+            "fit_samples_per_s": t["train_samples_per_s"],
+            "fit_train_step_ms": t["train_step_seconds"] * 1e3 / steps,
+            "epoch_seconds": t["epoch_train_seconds"],
+            "epoch_seconds_outside_train_step": t["epoch_train_seconds"]
+            - t["train_step_seconds"],
+            "validate_decode_seconds": t["valid_decode_seconds"],
+            "validate_metrics_seconds": t["valid_metrics_seconds"],
+            "test_avg_time_per_sample": results["avg_time_per_sample"],
+            "checkpoint_seconds": t["checkpoint_seconds"],
+            "checkpoint_bytes": t["checkpoint_bytes"],
+            "max_memory_allocated": {"fit": fit["max_memory_allocated"],
+                                     "test": test["max_memory_allocated"]},
+            "launches": {name: {k: v for k, v in st["launches"].items() if v}
+                         for name, st in (("fit", fit), ("test", test), ("predict", pred))},
+        }
+        print(f"[6] flat cli numbers on {nvidia_smi()}: {json.dumps(numbers)}", flush=True)
+    print(f"[6] the flat command-line runs took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(total), numbers
+
+
+def time_pointer_one_row(rng, dev, n, s, e):
+    """K1 as the flat engines call it: one row a sample against n x s memory
+    rows, bf16: kernel, plain, the library's matmul + masked_fill + argmax,
+    bound."""
+    import torch
+    from faceformer_tpu_torch.ops.pointer import pointer_argmax
+
+    bf = torch.bfloat16
+    rows = torch.as_tensor(rng.standard_normal((n, 1, e)), dtype=bf, device=dev)
+    memory = torch.as_tensor(rng.standard_normal((n, s, e)), dtype=bf, device=dev)
+    mask = padding(rng, n, s, dev)
+    neg = float(np.finfo(np.float32).min)
+
+    def library():
+        logits = torch.matmul(rows, memory.transpose(1, 2)).float()
+        return logits.masked_fill(mask[:, None, :], neg).argmax(-1)
+
+    b, by = bound_ms(nbytes(rows, memory, mask) + n * 4, 2.0 * n * s * e, bf)
+    row = dict(ms=time_ms(lambda: pointer_argmax(rows, memory, mask)),
+               plain_ms=time_ms(lambda: pointer_argmax(rows, memory, mask, impl="plain")),
+               library_ms=time_ms(library), bound_ms=b, bound_by=by)
+    print(f"[6] pointer_argmax flat step rows ({n},1,{e}) memory ({n},{s},{e}) bf16: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+          f"ms, bound {b:.5f} ms ({by})", flush=True)
+    return row
+
+
+def run_flat_phase(seed, rng, dev):
+    """Phase 6. Returns (launches of the flat main paths, max bf16 errors by
+    kernel, the timed rows the summary adds to K1, K2 and K3)."""
+    import collections
+
+    import torch
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
+    from faceformer_tpu_torch.params import jitter_affine_
+
+    t_phase = time.perf_counter()
+    cfg = load_config(FLAT_CONFIG)
+    mc = cfg.model
+    h, hd, s = mc.num_head, mc.num_model // mc.num_head, mc.num_lines + mc.token.length
+    print(f"[6] the flat SurfaceFormer at configs/synthetic-dirtok-big.yml: d={mc.num_model}, "
+          f"{h} heads, FFN {mc.num_feedforward}, {mc.num_encoder_layers}+"
+          f"{mc.num_decoder_layers} layers, num_lines {mc.num_lines} (S={s}), label_seq_length "
+          f"{mc.label_seq_length}, tokens {mc.token}, batch {cfg.batch_size_train}, "
+          f"{cfg.trainer.precision}, dropout {mc.dropout}, lr {cfg.trainer.lr}, decode "
+          f"{cfg.decode.mode}", flush=True)
+    err = collections.defaultdict(float)
+    for label, n, sq, sk, causal, heads, dim in LONG_KEY_SHAPES:
+        e_fwd, e_bwd = check_long_keys(rng, dev, label, n, sq, sk, causal, heads, dim)
+        err["flash_fwd"], err["flash_bwd"] = max(err["flash_fwd"], e_fwd), max(err["flash_bwd"],
+                                                                              e_bwd)
+    for label, n_full, sq, sk, causal, n_plain in FLAT_SHAPES:
+        e_fwd, e_bwd = check_flash_train(rng, dev, label, n_full, sq, sk, causal, n_plain, h, hd)
+        err["flash_fwd"], err["flash_bwd"] = max(err["flash_fwd"], e_fwd), max(err["flash_bwd"],
+                                                                              e_bwd)
+    err["pointer_argmax"] = check_pointer(rng, dev, cfg.batch_size_train, 1, s, mc.num_model)
+    rows = {"pointer_argmax": {"flat-step": time_pointer_one_row(rng, dev, cfg.batch_size_train,
+                                                                 s, mc.num_model)},
+            "flash_fwd": {}, "flash_bwd": {}}
+    flash_lib, k3_lib = flash_libraries()
+    for label, n, sq, sk, causal, _ in FLAT_SHAPES:
+        inputs = train_attention_inputs(rng, dev, torch.bfloat16, label, n, sq, sk, h, hd)
+        rows["flash_fwd"][label], rows["flash_bwd"][label] = time_flash_call(
+            label, *inputs, causal, flash_lib, k3_lib)
+        del inputs
+    print(f"[6] kernels took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    gen = torch.Generator().manual_seed(seed)
+    model = SurfaceFormer(mc, generator=gen, device=dev)
+    jitter_affine_(model, gen)  # biases and LayerNorms off their init values
+    t0 = time.perf_counter()
+    samples = flat_samples(rng, mc, cfg.batch_size_train)
+    batch = flat_batch(samples, mc, dev)
+    print(f"[6] flat batch N={len(samples)}: seeded rich direction-token solids, "
+          f"{int((~batch['label_mask'][:, 1:]).sum())} non-PAD target tokens, label lengths "
+          f"{int((~batch['label_mask']).sum(1).min())}..{int((~batch['label_mask']).sum(1).max())}"
+          f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    launches, _ = run_flat_training(model, cfg, batch, seed)
+    total.update(launches)
+    print(f"[6] training took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for st in run_flat_serving(model, mc, samples, dev).values():
+        total.update(st)
+    print(f"[6] serving took {time.perf_counter() - t0:.1f} s", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+    cli_launches, _ = run_flat_cli()
+    total.update(cli_launches)
+    print(f"[6] the flat phase took {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{json.dumps({k: v for k, v in total.items() if v})}", flush=True)
+    return dict(total), dict(err), rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--tie-readings", default="", metavar="SEEDS",
+                        help="comma-separated seeds: print only the readings the flat bf16 "
+                             "serving check's limits are set from (flat_tie_readings)")
     args = parser.parse_args()
 
     import torch
@@ -1428,6 +2251,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tie_readings:
+        print(f"{torch.cuda.get_device_name(0)}: {nvidia_smi()}", flush=True)
+        flat_tie_readings([int(x) for x in args.tie_readings.split(",")], torch.device("cuda"))
+        return 0
 
     from faceformer_tpu_torch import ops
     from faceformer_tpu_torch.config import load_config
@@ -1523,8 +2350,7 @@ def main() -> int:
     bf = torch.bfloat16
     timings = []
     from faceformer_tpu_torch.ops.decode_step import decode_step
-    from faceformer_tpu_torch.ops.flash import (flash_attention_bwd, flash_attention_fwd,
-                                                padding_mask_bias)
+    from faceformer_tpu_torch.ops.flash import flash_attention_fwd, padding_mask_bias
     from faceformer_tpu_torch.ops.pointer import pointer_argmax
 
     rows = torch.as_tensor(rng.standard_normal((n, f, e)), dtype=bf, device=dev)
@@ -1546,9 +2372,7 @@ def main() -> int:
     # K2 in serving, no dropout: the encoder (its row in the summary) and the
     # reference engine's decoder self-attention (it decodes N=4) over a live
     # prefix of 18
-    flash_lib = _build.load("flash")
-    flash_lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
-    flash_lib.flash_smem_bytes.restype = ctypes.c_size_t
+    flash_lib, k3_lib = flash_libraries()
     k2_rows = {}
     for label, n2, sq in (("encoder-serving", n, s), ("reference-decoder", 4 * f, 37)):
         q, k, v = (torch.as_tensor(rng.standard_normal((n2, sq, h, hd)), dtype=bf, device=dev)
@@ -1593,59 +2417,14 @@ def main() -> int:
                             iters=5), None, b, fl))
     gemm_phase = k4_gemm_phase(inp, mc, rng, dev)
     del inp
+    pointer_phase = k4_pointer_phase(rng, dev, n, f, s, e)
     # K3 (and K2 with dropout) at the three training shapes, bf16, dropout on
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    k3_lib = _build.load("flash_bwd")
-    k3_lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    k3_lib.flash_bwd_smem_bytes.restype = ctypes.c_size_t
-    k3_lib.flash_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 7
-    k3_lib.flash_bwd_workspace_bytes.restype = ctypes.c_size_t
     k3_rows = {}
     for label, n3, sq, sk, causal, _ in TRAIN_SHAPES:
-        q, k, v, do, bias = train_attention_inputs(rng, dev, bf, label, n3, sq, sk, h, hd)
-        kw = dict(causal=causal, dropout_rate=TRAIN_RATE, seed=1234)
-        lse = flash_attention_fwd(q, k, v, bias, **kw)[1]
-        fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, **kw), iters=5)
-        fwd0_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, causal=causal), iters=5)
-        ms = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, **kw), iters=5)
-        ms0 = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, causal=causal),
-                      iters=5)
-        plain = time_ms(lambda: flash_attention_bwd(q, k, v, bias, lse, do, impl="plain", **kw),
-                        iters=2, warmup=1)
-        # the library's backward alone: one autograd.grad through its attention
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        mask4 = bias[:, None, None, :]
-        if causal:
-            above = torch.ones((sq, sk), dtype=torch.bool, device=dev).triu(1)
-            mask4 = mask4.expand(n3, 1, sq, sk).masked_fill(above, neg)
-        mask4 = mask4.to(bf)
-        # the library's forward with the same mask and dropout, timed alike
-        with torch.no_grad():
-            fwd_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask4, dropout_p=TRAIN_RATE),
-                              iters=5)
-        out = sdpa(qt, kt, vt, attn_mask=mask4, dropout_p=TRAIN_RATE)
-        dot = do.transpose(1, 2)
-        lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
-                      iters=5)
-        moved = nbytes(q, k, v, do, lse, bias) + nbytes(q, k, v)
-        b, by = bound_ms(moved, 5 * 2.0 * n3 * h * sq * sk * hd, bf)
-        fb, fby = bound_ms(nbytes(q, k, v, bias, q, lse), 2 * 2.0 * n3 * h * sq * sk * hd, bf)
-        smem = k3_lib.flash_bwd_smem_bytes(1, sk, hd)
-        work = k3_lib.flash_bwd_workspace_bytes(1, n3, sq, sk, h, hd, 1)
-        k3_rows[label] = dict(ms=ms, ms_no_dropout=ms0, plain_ms=plain, library_ms=lib,
-                              bound_ms=b, bound_by=by, smem_bytes=smem, workspace_bytes=work)
-        k2_rows[label] = dict(ms=fwd_ms, ms_no_dropout=fwd0_ms, library_ms=fwd_lib,
-                              bound_ms=fb, bound_by=fby,
-                              smem_bytes=flash_lib.flash_smem_bytes(1, sk, hd))
-        print(f"[4] flash_bwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
-              f"{TRAIN_RATE}: kernel {ms:.4f} ms (dropout 0: {ms0:.4f}), plain {plain:.4f} ms, "
-              f"library backward {lib:.4f} ms, bound {b:.5f} ms ({by}); dynamic shared memory "
-              f"{smem} B a block, keep-bit workspace {work} B", flush=True)
-        print(f"[4] flash_fwd {label} q({n3},{sq},{h},{hd}) k({n3},{sk}) bf16 dropout "
-              f"{TRAIN_RATE}: kernel {fwd_ms:.4f} ms (dropout 0: {fwd0_ms:.4f}), library "
-              f"{fwd_lib:.4f} ms (same mask and dropout), bound {fb:.5f} ms ({fby}); dynamic "
-              f"shared memory {k2_rows[label]['smem_bytes']} B a block", flush=True)
-        del q, k, v, do, bias, lse, qt, kt, vt, out, dot, mask4
+        inputs = train_attention_inputs(rng, dev, bf, label, n3, sq, sk, h, hd)
+        k2_rows[label], k3_rows[label] = time_flash_call(label, *inputs, causal, flash_lib,
+                                                         k3_lib)
+        del inputs
     row = k3_rows["cross"]
     timings.insert(2, ("flash_bwd", "faceformer_tpu_torch/csrc/flash_bwd.cu",
                        "faceformer_tpu/ops/flash.py:293", row["ms"], row["plain_ms"],
@@ -1662,17 +2441,26 @@ def main() -> int:
     for k, v in run_cli_phase(train_rates).items():
         total[k] += v
 
-    # phase 6
+    # phase 6: the flat model at the synthetic-dirtok-big width
+    flat_launches, flat_err, flat_rows = run_flat_phase(args.seed, rng, dev)
+    for k, v in flat_launches.items():
+        total[k] += v
+    for k, v in flat_err.items():
+        err[k] = max(err[k], v)
+
+    # phase 7
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
          "bound_ms": bnd, "bound_by": by, "library_ms": lib}
         for name, src, rep, ms, plain, lib, bnd, by in timings]}
     # K2's entry is the serving encoder call and K3's the cross-attention
-    # call; their other shapes ride along
-    summary["kernels"][1]["shapes"] = k2_rows
-    summary["kernels"][2]["shapes"] = k3_rows
+    # call; their other shapes ride along, the flat model's among them
+    summary["kernels"][0]["shapes"] = flat_rows["pointer_argmax"]
+    summary["kernels"][1]["shapes"] = {**k2_rows, **flat_rows["flash_fwd"]}
+    summary["kernels"][2]["shapes"] = {**k3_rows, **flat_rows["flash_bwd"]}
     summary["kernels"][3]["gemm_phase"] = gemm_phase
+    summary["kernels"][3]["pointer_phase"] = pointer_phase
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,15 +11,18 @@ with nvcc at first use (``ops/_build.py``).
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise.
 
-Ported so far (the anchor-parallel model, serving and training):
+Ported so far (both models, serving and training):
   - config, post_processing, geometry/ (fixtures and solids included):
     copies of the JAX package's numpy modules
-  - data/: packing, batching, ABCDatasetParallel
-  - models/: layers, embedding, encoder pass, SurfaceFormerParallel
+  - data/: packing (both label layouts), batching, ABCDataset,
+    ABCDatasetParallel
+  - models/: layers, embedding, encoder pass, SurfaceFormer (flat),
+    SurfaceFormerParallel
   - params: seeded init and the JAX parameter-tree bridge
-  - ops/: pointer argmax, flash attention forward and backward, fused
-    decode step
-  - decode: greedy_decode_parallel (reference, causal_cache, fused)
+  - ops/: pointer argmax, flash attention forward and backward (key-tiled
+    past a block's shared memory), fused decode step
+  - decode: greedy_decode_parallel (reference, causal_cache, fused) and
+    greedy_decode_single (reference, causal_cache)
   - train/: loss, metrics, step, logging, checkpoints, the Harness
   - main (``python -m faceformer_tpu_torch.main``), tools/predict and
     tools/synthetic_data: the command lines

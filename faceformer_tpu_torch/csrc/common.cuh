@@ -239,6 +239,9 @@ __device__ __forceinline__ void load_a_fragment(const TA* pa, const TA* pb, bool
 
 // Opt a kernel into more than 48 KB of dynamic shared memory (once per
 // instantiation and size).
+// Dynamic shared memory a block may use on sm_90 (232,448 bytes).
+constexpr size_t SMEM_LIMIT = 232448;
+
 template <typename K> inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

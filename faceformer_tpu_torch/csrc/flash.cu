@@ -18,7 +18,7 @@
 // cores). The decoder self-attention (6,912 sequences of 40) moves 1.13
 // GB (0.338 ms); the serving encoder (N=20, S=220) ~18 MB (5.4 us).
 //
-// Design: every key side on the main paths has Sk <= 220, so one
+// Design: the anchor-parallel paths' key sides have Sk <= 220, so one
 // (sequence, head)'s K and V sit in shared memory whole and the softmax is
 // exact, not online, as in the Pallas kernel. bf16 at hd = 64 runs the
 // tensor-core kernel of attention.cuh; fp32 and other head dims run its
@@ -34,13 +34,227 @@
 // block's next key side arrives while it computes the current one. The
 // output leaves through shared memory as 16-byte stores. Blocks: the
 // card's resident count, so one wave covers the call.
+//
+// Long key sides. A key side whose whole-row kernel would need more shared
+// memory than a block has (fp32 past Sk = 420 at hd = 64, bf16 past 789:
+// the flat model's decoder self-attention at label_seq_length 512, the
+// JAX kernel's reach at its 16 MB VMEM budget) runs attention_tiled_kernel
+// below instead, and only then: every shape the kernels above take keeps
+// its kernel. It stages ATT_TILE_KEYS keys at a time and walks them twice,
+// as the CUDA-core kernel walks its staged row: pass 1 finds each row's
+// max and sum of exponentials (rescaled from tile to tile), which give
+// lse; pass 2 recomputes the scores, forms p = exp(s - lse), drops it with
+// the keep bits of the GLOBAL key index, rounds it to q's dtype before the
+// product with v as flash.py:118-138 does, and accumulates p . v in
+// registers. Online rescaling of the output would round other quantities
+// than the reference does; the two passes keep its arithmetic at the price
+// of a second q . k^T. Under the causal mask the tiles past a block's last
+// row are skipped: their p is exactly 0 (as in the dk/dv kernel of
+// flash_bwd.cu). Bound: the scores' FMAs on the CUDA cores, each reading a
+// key element from shared memory; a simple kernel first.
 
 #include "attention.cuh"
+
+namespace ff {
+
+constexpr int ATT_TILE_KEYS = 128;  // keys a tile: a multiple of 32, so lanes keep their keys
+
+template <typename TK> inline size_t attention_tiled_smem_bytes(int hd) {
+  const size_t ks = ((size_t)ATT_TILE_KEYS * (hd + kv_pad<TK>()) * sizeof(TK) + 15) / 16 * 16;
+  const size_t vs = ((size_t)ATT_TILE_KEYS * hd * sizeof(TK) + 15) / 16 * 16;
+  return ks + vs + (size_t)ATT_ROWS * hd * 4 + (size_t)ATT_WARPS * ATT_TILE_KEYS * 4;
+}
+
+// Grid (N * H, ceil(Sq / ATT_ROWS)), ATT_WARPS warps; warp w owns rows
+// w, w + ATT_WARPS, ... of the block's ATT_ROWS, lanes split a tile's keys
+// for the scores and hd (DC values a lane) for the output.
+template <typename TQ, typename TK, bool DROP, int DC>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attention_tiled_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                       const TK* __restrict__ v, const float* __restrict__ bias,
+                       TQ* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+                       int hd, float scale, int causal, Dropout drop) {
+  constexpr int KT = ATT_TILE_KEYS, RPW = ATT_ROWS / ATT_WARPS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kstride = hd + kv_pad<TK>();
+  const size_t ks_bytes = ((size_t)KT * kstride * sizeof(TK) + 15) / 16 * 16;
+  const size_t vs_bytes = ((size_t)KT * hd * sizeof(TK) + 15) / 16 * 16;
+  TK* Ks = reinterpret_cast<TK*>(smem);
+  TK* Vs = reinterpret_cast<TK*>(smem + ks_bytes);
+  float* qs = reinterpret_cast<float*>(smem + ks_bytes + vs_bytes);
+  float* pw = qs + ATT_ROWS * hd + (threadIdx.x / 32) * KT;
+
+  const int n = blockIdx.x / H, h = blockIdx.x % H, i0 = blockIdx.y * ATT_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t E = (size_t)H * hd;
+  const float* bias_n = bias + (size_t)n * Sk;
+  const int j_end = causal ? min(Sk, i0 + ATT_ROWS) : Sk;
+  const int tiles = (j_end + KT - 1) / KT;
+
+  for (int idx = threadIdx.x; idx < ATT_ROWS * hd; idx += blockDim.x) {
+    const int r = idx / hd, d = idx % hd;
+    qs[idx] = i0 + r < Sq ? to_f(q[((size_t)n * Sq + i0 + r) * E + (size_t)h * hd + d]) : 0.f;
+  }
+
+  // the scores of keys j0 + lane, j0 + lane + 32, ... of row r into pw
+  auto scores = [&](int r, int j0, int nk) {
+    const float* qw = qs + r * hd;
+    for (int jj = lane; jj < nk; jj += 32) {
+      const TK* kj = Ks + jj * kstride;
+      float s = 0.f;
+      for (int d = 0; d < hd; ++d) s = fmaf(qw[d], to_f(kj[d]), s);
+      s *= scale;
+      s += bias_n[j0 + jj];
+      if (causal && j0 + jj > i0 + r) s = NEG;
+      pw[jj] = s;
+    }
+  };
+  auto stage = [&](int j0, int nk, bool with_v) {
+    __syncthreads();  // the previous tile's reads are done
+    for (int idx = threadIdx.x; idx < nk * hd; idx += blockDim.x) {
+      const int jj = idx / hd, d = idx % hd;
+      const size_t g = ((size_t)n * Sk + j0 + jj) * E + (size_t)h * hd + d;
+      Ks[jj * kstride + d] = k[g];
+      if (with_v) Vs[jj * hd + d] = v[g];
+    }
+    __syncthreads();
+  };
+
+  // pass 1: row max and sum of exponentials, tile by tile
+  float m[RPW], l[RPW];
+#pragma unroll
+  for (int t = 0; t < RPW; ++t) m[t] = -INFINITY, l[t] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int j0 = tile * KT, nk = min(KT, Sk - j0);
+    stage(j0, nk, false);
+#pragma unroll
+    for (int t = 0; t < RPW; ++t) {
+      const int r = warp + t * ATT_WARPS;
+      if (i0 + r < Sq) {
+        scores(r, j0, nk);
+        float mx = -INFINITY;
+        for (int jj = lane; jj < nk; jj += 32) mx = fmaxf(mx, pw[jj]);
+        const float m_new = fmaxf(m[t], warp_max(mx));
+        float sum = 0.f;
+        for (int jj = lane; jj < nk; jj += 32) sum += expf(pw[jj] - m_new);
+        l[t] = l[t] * expf(m[t] - m_new) + warp_sum(sum);
+        m[t] = m_new;
+      }
+    }
+  }
+  float ls[RPW];
+#pragma unroll
+  for (int t = 0; t < RPW; ++t) ls[t] = m[t] + logf(l[t]);
+
+  // pass 2: p = exp(s - lse), dropped and rounded, times v
+  float acc[RPW][DC];
+#pragma unroll
+  for (int t = 0; t < RPW; ++t)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[t][c] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int j0 = tile * KT, nk = min(KT, Sk - j0);
+    stage(j0, nk, true);
+#pragma unroll
+    for (int t = 0; t < RPW; ++t) {
+      const int r = warp + t * ATT_WARPS, i = i0 + r;
+      if (i < Sq) {
+        scores(r, j0, nk);
+        for (int jj = lane; jj < nk; jj += 32) {
+          float p = expf(pw[jj] - ls[t]);
+          if constexpr (DROP) p = dropout_keep(drop, n, h, i, j0 + jj) ? p * drop.scale : 0.f;
+          pw[jj] = round_to<TQ>(p);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const int d = lane + 32 * c;
+          if (d < hd) {
+            float a = acc[t][c];
+            for (int jj = 0; jj < nk; ++jj) a = fmaf(pw[jj], to_f(Vs[jj * hd + d]), a);
+            acc[t][c] = a;
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < RPW; ++t) {
+    const int i = i0 + warp + t * ATT_WARPS;
+    if (i < Sq) {
+      const size_t qoff = ((size_t)n * Sq + i) * E + (size_t)h * hd;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        if (lane + 32 * c < hd) out[qoff + lane + 32 * c] = from_f<TQ>(acc[t][c]);
+      if (lane == 0) lse[((size_t)n * Sq + i) * H + h] = ls[t];
+    }
+  }
+}
+
+// Head dims the tiled kernel takes: DC = ceil(hd / 32) <= 4.
+constexpr int ATT_TILED_MAX_HD = 128;
+
+template <typename TQ, typename TK, bool DROP>
+inline cudaError_t launch_attention_tiled(const TQ* q, const TK* k, const TK* v,
+                                          const float* bias, TQ* out, float* lse, int N, int Sq,
+                                          int Sk, int H, int hd, float scale, int causal,
+                                          cudaStream_t stream, Dropout drop) {
+  const size_t smem = attention_tiled_smem_bytes<TK>(hd);
+  const dim3 grid(N * H, (Sq + ATT_ROWS - 1) / ATT_ROWS);
+#define FF_ATT_TILED(DC)                                                                       \
+  {                                                                                            \
+    auto kernel = attention_tiled_kernel<TQ, TK, DROP, DC>;                                    \
+    cudaError_t e = allow_smem(kernel, smem);                                                  \
+    if (e != cudaSuccess) return e;                                                            \
+    kernel<<<grid, ATT_WARPS * 32, smem, stream>>>(q, k, v, bias, out, lse, Sq, Sk, H, hd,     \
+                                                   scale, causal, drop);                       \
+    return cudaGetLastError();                                                                 \
+  }
+  if (hd <= 32) FF_ATT_TILED(1)
+  if (hd <= 64) FF_ATT_TILED(2)
+  if (hd <= ATT_TILED_MAX_HD) FF_ATT_TILED(4)
+#undef FF_ATT_TILED
+  return cudaErrorInvalidValue;
+}
+
+// The kernel the call takes: the whole-row kernels unless their shared
+// memory exceeds a block's, then the key-tiled one. Built with
+// FF_KEY_TILES_ALWAYS (tools/time_key_tiles.py), every call takes the
+// key-tiled kernel, to time it where the whole-row kernels also apply.
+inline size_t whole_row_smem_bytes(int dtype, int Sk, int hd) {
+  if (dtype == FF_FLOAT32) return attention_smem_bytes<float>(Sk, hd);
+  return takes_tc(Sk, hd) ? tc_smem_for<__nv_bfloat16>(Sk)
+                          : attention_smem_bytes<__nv_bfloat16>(Sk, hd);
+}
+inline bool flash_tiled(int dtype, int Sk, int hd) {
+#ifdef FF_KEY_TILES_ALWAYS
+  return true;
+#else
+  return whole_row_smem_bytes(dtype, Sk, hd) > SMEM_LIMIT;
+#endif
+}
+
+}  // namespace ff
 
 template <bool DROP>
 static int flash_fwd_impl(int dtype, const void* q, const void* k, const void* v, const float* b,
                           int N, int Sq, int Sk, int H, int hd, float scale, int causal,
                           ff::Dropout drop, void* out, float* l, cudaStream_t st) {
+  if (ff::flash_tiled(dtype, Sk, hd)) {
+    if (dtype == FF_FLOAT32)
+      return ff::launch_attention_tiled<float, float, DROP>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), b, static_cast<float*>(out), l, N, Sq, Sk, H, hd, scale,
+          causal, st, drop);
+    if (dtype == FF_BFLOAT16)
+      return ff::launch_attention_tiled<__nv_bfloat16, __nv_bfloat16, DROP>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), b, static_cast<__nv_bfloat16*>(out), l, N, Sq,
+          Sk, H, hd, scale, causal, st, drop);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == FF_FLOAT32)
     return ff::launch_attention<float, float, false, DROP>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -70,11 +284,20 @@ FF_EXPORT int flash_fwd(int dtype, const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory of the kernel that takes (dtype, Sk, hd): the
-// tensor-core kernel's larger walk, or the CUDA-core kernel's.
+// tensor-core kernel's larger walk or the CUDA-core kernel's, or past a
+// block's shared memory the key-tiled kernel's (more than a block has only
+// where even one tile does not fit: hd past ATT_TILED_MAX_HD).
 FF_EXPORT size_t flash_smem_bytes(int dtype, int Sk, int hd) {
-  if (dtype == FF_FLOAT32) return ff::attention_smem_bytes<float>(Sk, hd);
-  return ff::takes_tc(Sk, hd) ? ff::tc_smem_for<__nv_bfloat16>(Sk)
-                              : ff::attention_smem_bytes<__nv_bfloat16>(Sk, hd);
+  if (!ff::flash_tiled(dtype, Sk, hd)) return ff::whole_row_smem_bytes(dtype, Sk, hd);
+  if (hd > ff::ATT_TILED_MAX_HD) return (size_t)-1;
+  return dtype == FF_FLOAT32 ? ff::attention_tiled_smem_bytes<float>(hd)
+                             : ff::attention_tiled_smem_bytes<__nv_bfloat16>(hd);
+}
+
+// Keys a tile of the kernel that takes (dtype, Sk, hd); 0: the whole key
+// side is staged at once.
+FF_EXPORT int flash_key_tile(int dtype, int Sk, int hd) {
+  return ff::flash_tiled(dtype, Sk, hd) ? ff::ATT_TILE_KEYS : 0;
 }
 
 // The keep mask alone, as bytes (N, H, Sq, Sk): what both flash kernels apply

@@ -25,9 +25,18 @@
 // order; CUDA blocks run in no order, so the backward is two kernels and
 // no atomics, which makes every gradient bitwise repeatable:
 //   1. dq: a block holds the whole key side of its (sequence, head) (Sk <=
-//      a few hundred on every path) in shared memory, loaded once, and
-//      walks a share of the query tiles, so delta is an exact row sum as in
-//      the Pallas kernel. It also writes delta (N, Sq, H).
+//      a few hundred on the anchor-parallel paths) in shared memory, loaded
+//      once, and walks a share of the query tiles, so delta is an exact row
+//      sum as in the Pallas kernel. It also writes delta (N, Sq, H). Where
+//      the key side does not fit a block's shared memory (past Sk = 391 at
+//      hd = 64: the flat model's decoder self-attention at
+//      label_seq_length 512), and only there, flash_bwd_dq_tiled_kernel
+//      walks the keys BWD_TILE_KEYS at a time, twice: pass 1 sums delta,
+//      pass 2 forms ds and accumulates dq. A lane keeps the keys it would
+//      hold in the whole-row kernel (tiles are a multiple of 32) and every
+//      sum runs in the same order, so the two agree bit for bit where both
+//      apply (non-degenerate rows; the causal tiles past a block's rows,
+//      whose p is exactly 0, are skipped).
 //   2. dk, dv: a block is stationary over a tile of keys and walks every
 //      query row in a fixed order, reading delta; the accumulators stay in
 //      registers.
@@ -127,6 +136,167 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
     __syncwarp();
   }
+}
+
+constexpr int BWD_TILE_KEYS = 128;  // keys a tile of the tiled dq kernel: a multiple of 32
+
+inline size_t bwd_dq_tiled_smem_bytes(int hd) {
+  return ((size_t)2 * BWD_TILE_KEYS * (hd + 1) + (size_t)2 * BWD_ROWS * hd +
+          (size_t)2 * BWD_WARPS * BWD_TILE_KEYS) * sizeof(float);
+}
+
+// The dq kernel for key sides past a block's shared memory. Grid (N * H,
+// ceil(Sq / BWD_ROWS)); warp w owns rows w, w + BWD_WARPS, ... of the
+// block's BWD_ROWS, whose q and do rows stay in shared memory; each key
+// tile of K and V (fp32) is staged once a pass. Lanes split a tile's keys
+// for s, dp and ds, then hd (DC values a lane, in registers across tiles)
+// for dq = ds . k.
+template <typename T, int DC>
+__global__ void __launch_bounds__(BWD_WARPS * 32)
+flash_bwd_dq_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const float* __restrict__ bias,
+                          const float* __restrict__ lse, const T* __restrict__ dout,
+                          T* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk, int H,
+                          int hd, float scale, int causal, Dropout drop) {
+  constexpr int KT = BWD_TILE_KEYS, RPW = BWD_ROWS / BWD_WARPS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kstride = hd + 1;
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + (size_t)KT * kstride;
+  float* qs = Vs + (size_t)KT * kstride;
+  float* dos = qs + BWD_ROWS * hd;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* pw = dos + BWD_ROWS * hd + warp * KT;
+  float* dpw = pw + BWD_WARPS * KT;
+
+  const int n = blockIdx.x / H, h = blockIdx.x % H, i0 = blockIdx.y * BWD_ROWS;
+  const size_t E = (size_t)H * hd;
+  const float* bias_n = bias + (size_t)n * Sk;
+  const int j_end = causal ? min(Sk, i0 + BWD_ROWS) : Sk;
+  const int tiles = (j_end + KT - 1) / KT;
+
+  for (int idx = threadIdx.x; idx < BWD_ROWS * hd; idx += blockDim.x) {
+    const int r = idx / hd, d = idx % hd;
+    const bool ok = i0 + r < Sq;
+    const size_t g = ((size_t)n * Sq + i0 + r) * E + (size_t)h * hd + d;
+    qs[idx] = ok ? to_f(q[g]) : 0.f;
+    dos[idx] = ok ? to_f(dout[g]) : 0.f;
+  }
+  float lrow[RPW];
+#pragma unroll
+  for (int t = 0; t < RPW; ++t) {
+    const int i = i0 + warp + t * BWD_WARPS;
+    lrow[t] = i < Sq ? lse[((size_t)n * Sq + i) * H + h] : 0.f;
+  }
+
+  auto stage = [&](int j0, int nk) {
+    __syncthreads();  // the previous tile's reads are done
+    for (int idx = threadIdx.x; idx < nk * hd; idx += blockDim.x) {
+      const int jj = idx / hd, d = idx % hd;
+      const size_t g = ((size_t)n * Sk + j0 + jj) * E + (size_t)h * hd + d;
+      Ks[jj * kstride + d] = to_f(k[g]);
+      Vs[jj * kstride + d] = to_f(v[g]);
+    }
+    __syncthreads();
+  };
+  // p (pre-dropout) into pw and dp (kept, scaled, or 0) into dpw for keys
+  // j0 + lane, j0 + lane + 32, ... of row r, as the whole-row kernel does
+  auto probs = [&](int r, float l, int j0, int nk) {
+    const int i = i0 + r;
+    const float* qw = qs + r * hd;
+    const float* dow = dos + r * hd;
+    for (int jj = lane; jj < nk; jj += 32) {
+      const int j = j0 + jj;
+      const float* kj = Ks + jj * kstride;
+      const float* vj = Vs + jj * kstride;
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        s = fmaf(qw[d], kj[d], s);
+        dp = fmaf(dow[d], vj[d], dp);
+      }
+      s = s * scale + bias_n[j];
+      if (causal && j > i) s = NEG;
+      if (drop.on()) dp = dropout_keep(drop, n, h, i, j) ? dp * drop.scale : 0.f;
+      pw[jj] = expf(s - l);
+      dpw[jj] = dp;
+    }
+  };
+
+  // pass 1: delta = sum_j p * dp
+  float part[RPW];
+#pragma unroll
+  for (int t = 0; t < RPW; ++t) part[t] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int j0 = tile * KT, nk = min(KT, Sk - j0);
+    stage(j0, nk);
+#pragma unroll
+    for (int t = 0; t < RPW; ++t) {
+      const int r = warp + t * BWD_WARPS;
+      if (i0 + r < Sq) {
+        probs(r, lrow[t], j0, nk);
+        for (int jj = lane; jj < nk; jj += 32) part[t] += pw[jj] * dpw[jj];
+      }
+    }
+  }
+  float dl[RPW];
+#pragma unroll
+  for (int t = 0; t < RPW; ++t) {
+    dl[t] = warp_sum(part[t]);
+    const int i = i0 + warp + t * BWD_WARPS;
+    if (i < Sq && lane == 0) delta[((size_t)n * Sq + i) * H + h] = dl[t];
+  }
+
+  // pass 2: ds = p * (dp - delta) * scale, dq += ds . k
+  float acc[RPW][DC];
+#pragma unroll
+  for (int t = 0; t < RPW; ++t)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[t][c] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int j0 = tile * KT, nk = min(KT, Sk - j0);
+    stage(j0, nk);
+#pragma unroll
+    for (int t = 0; t < RPW; ++t) {
+      const int r = warp + t * BWD_WARPS;
+      if (i0 + r < Sq) {
+        probs(r, lrow[t], j0, nk);
+        for (int jj = lane; jj < nk; jj += 32) pw[jj] = pw[jj] * (dpw[jj] - dl[t]) * scale;
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const int d = lane + 32 * c;
+          if (d < hd) {
+            float a = acc[t][c];
+            for (int jj = 0; jj < nk; ++jj) a = fmaf(pw[jj], Ks[jj * kstride + d], a);
+            acc[t][c] = a;
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < RPW; ++t) {
+    const int i = i0 + warp + t * BWD_WARPS;
+    if (i < Sq) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        if (lane + 32 * c < hd)
+          dq[((size_t)n * Sq + i) * E + (size_t)h * hd + lane + 32 * c] = from_f<T>(acc[t][c]);
+    }
+  }
+}
+
+// The dq kernel stages the whole key side unless that exceeds a block's
+// shared memory (always the key-tiled one when built with
+// FF_KEY_TILES_ALWAYS, as tools/time_key_tiles.py builds it).
+inline bool bwd_dq_tiled(int Sk, int hd) {
+#ifdef FF_KEY_TILES_ALWAYS
+  return true;
+#else
+  return bwd_dq_smem_bytes(Sk, hd) > SMEM_LIMIT;
+#endif
 }
 
 constexpr int KV_THREADS = 256;
@@ -275,7 +445,17 @@ inline cudaError_t launch_bwd_cores(const T* q, const T* k, const T* v, const fl
                                     float* delta, int N, int Sq, int Sk, int H, int hd,
                                     float scale, int causal, Dropout drop, cudaStream_t stream) {
   if (hd > KV_MAX_HD) return cudaErrorInvalidValue;
-  {
+  if (bwd_dq_tiled(Sk, hd)) {
+    const size_t smem = bwd_dq_tiled_smem_bytes(hd);
+    auto kernel = hd <= 32 ? flash_bwd_dq_tiled_kernel<T, 1> : flash_bwd_dq_tiled_kernel<T, 2>;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid(N * H, (Sq + BWD_ROWS - 1) / BWD_ROWS);
+    kernel<<<grid, BWD_WARPS * 32, smem, stream>>>(q, k, v, bias, lse, dout, dq, delta, Sq, Sk,
+                                                   H, hd, scale, causal, drop);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  } else {
     const size_t smem = bwd_dq_smem_bytes(Sk, hd);
     auto kernel = flash_bwd_dq_kernel<T>;
     cudaError_t e = allow_smem(kernel, smem);
@@ -339,8 +519,15 @@ FF_EXPORT int flash_bwd(int dtype, const void* q, const void* k, const void* v, 
 // so the wrapper can refuse a key length that does not fit.
 FF_EXPORT size_t flash_bwd_smem_bytes(int dtype, int Sk, int hd) {
   if (bwd_tensor_cores(dtype, Sk, hd)) return ff::bwd_tc_smem_bytes(Sk);
-  const size_t a = ff::bwd_dq_smem_bytes(Sk, hd), b = ff::bwd_dkv_smem_bytes(hd);
+  const size_t a = ff::bwd_dq_tiled(Sk, hd) ? ff::bwd_dq_tiled_smem_bytes(hd)
+                                            : ff::bwd_dq_smem_bytes(Sk, hd);
+  const size_t b = ff::bwd_dkv_smem_bytes(hd);
   return a > b ? a : b;
+}
+
+// Keys a tile of the call's dq kernel; 0: the whole key side is staged.
+FF_EXPORT int flash_bwd_key_tile(int dtype, int Sk, int hd) {
+  return !bwd_tensor_cores(dtype, Sk, hd) && ff::bwd_dq_tiled(Sk, hd) ? ff::BWD_TILE_KEYS : 0;
 }
 
 // Bytes of the keep-bit buffer the call needs (keep_bits; 0: none): the

@@ -7,10 +7,8 @@ behaviour, same per-sample dict keys as the JAX package. Items are numpy
 arrays; ``data.batching`` collates them and the harness moves a batch to
 the card. Packing runs the Python path only: the JAX package's C++ fast
 path (``native_loader``) is not ported, since the port's predicates and
-packers are Python.
-
-Only the anchor-parallel layout is ported. The flat model's dataset,
-``ABCDataset``, waits for that model (ROADMAP.md Queue 1 item 5).
+packers are Python. ``ABCDataset`` packs the flat model's single-sequence
+labels, ``ABCDatasetParallel`` the anchor-parallel rows.
 """
 
 from __future__ import annotations
@@ -20,7 +18,11 @@ import os
 from typing import Dict, List, Sequence, Union
 
 from faceformer_tpu_torch.config import ModelConfig
-from faceformer_tpu_torch.data.packing import pack_input_edges, pack_label_parallel
+from faceformer_tpu_torch.data.packing import (
+    pack_input_edges,
+    pack_label_parallel,
+    pack_label_single,
+)
 
 
 def parse_splits_list(root_dir: str, splits: Union[str, Sequence[str]]) -> List[str]:
@@ -46,8 +48,9 @@ def parse_splits_list(root_dir: str, splits: Union[str, Sequence[str]]) -> List[
     return info_files
 
 
-class ABCDatasetParallel:
-    """Per-edge-anchor dataset: one label row per loop rotation."""
+class _BaseDataset:
+    """Preloaded raw samples and memoized packing; subclasses name the
+    label layout (``_pack_label``)."""
 
     def __init__(self, root_dir: str, splits: Union[str, Sequence[str]], config: ModelConfig):
         self.root_dir = root_dir
@@ -83,19 +86,22 @@ class ABCDatasetParallel:
             raw = self.raw_datas[index]
             sample = {"id": index, "name": self.info_files[index]}
             sample.update(pack_input_edges(raw["edges"], self.config))
-            sample.update(pack_label_parallel(raw["faces_indices"], self.config))
+            sample.update(self._pack_label(raw["faces_indices"], self.config))
             self._cache[index] = sample
         return self._cache[index]
 
 
+class ABCDataset(_BaseDataset):
+    """Single-sequence dataset: all faces flattened into one token stream."""
+
+    _pack_label = staticmethod(pack_label_single)
+
+
+class ABCDatasetParallel(_BaseDataset):
+    """Per-edge-anchor dataset: one label row per loop rotation."""
+
+    _pack_label = staticmethod(pack_label_parallel)
+
+
 # reference-compatible alias (configs name the dataset class by it)
 ABCDataset_Parallel = ABCDatasetParallel
-
-
-class ABCDataset:
-    """The flat model's single-sequence dataset: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ABCDataset (the flat SurfaceFormer's single-sequence labels) is not ported; "
-            "it comes with the flat model, ROADMAP.md Queue 1 item 5")

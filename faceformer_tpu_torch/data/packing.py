@@ -1,13 +1,14 @@
-"""Static-shape packing of wireframe samples into model-ready arrays.
+"""Static-shape packing of wireframe samples into model-ready arrays (a
+copy of faceformer_tpu/data/packing.py's inputs and both label layouts).
 
-The anchor-parallel subset of faceformer_tpu/data/packing.py: inputs, and
-the per-edge-anchor labels training needs (the flat model's
-``pack_label_single`` is not ported). Edge index i becomes token
-i + token.length, because the encoder memory prepends the special-token
-rows, so pointer logits are indexable by token id. Parallel labels: one row
-per rotation of each face loop, terminated by a face-type token (1=Plane,
-2=Cylinder, 3=Other; the type doubles as EOS); the remaining rows get a
-bare Other token.
+Edge index i becomes token i + token.length, because the encoder memory
+prepends the special-token rows, so pointer logits are indexable by token
+id.
+  - single-sequence labels (the flat model): [SOS, face1..., SEP, face2...,
+    SEP, ..., EOS, PAD...], the SEP after the last face overwritten by EOS;
+  - parallel labels: one row per rotation of each face loop, terminated by
+    a face-type token (1=Plane, 2=Cylinder, 3=Other; the type doubles as
+    EOS); the remaining rows get a bare Other token.
 """
 
 from __future__ import annotations
@@ -34,6 +35,58 @@ def pack_input_edges(edges: Sequence, cfg: ModelConfig) -> Dict[str, np.ndarray]
 
 def _flatten(list_of_lists):
     return [item for sub in list_of_lists for item in sub]
+
+
+def _is_direction_face(face) -> bool:
+    """True for --direction_token faces: loops of (index, orientation) pairs."""
+    if not len(face) or isinstance(face[0], (int, np.integer)):
+        return False
+    first = face[0]
+    return bool(len(first)) and not isinstance(first[0], (int, np.integer))
+
+
+def pack_label_single(faces_indices: Sequence, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """Flat-sequence label packing (reference: data.py:71-92).
+
+    ``faces_indices`` entries are flat index lists (combined-coedge data),
+    nested loop lists (flattened), or --direction_token loops of (index,
+    orientation) pairs, which interleave the edge pointer with a DIR0/DIR1
+    token: [..., idx+len, DIR(orient), ...]. Every token stays a pointer into
+    encoder memory (DIR0/DIR1 are special-token rows 4 and 5, token.length
+    6)."""
+    tok: TokenConfig = cfg.token
+    label = np.full(cfg.label_seq_length, tok.PAD, dtype=np.int32)
+    label[0] = tok.SOS
+    pos = 0
+    for face in faces_indices:
+        if _is_direction_face(face):
+            seq = []
+            for loop in face:
+                for idx, orient in loop:
+                    seq.extend([int(idx) + tok.length, tok.DIR0 + int(orient)])
+            face_tokens = np.asarray(seq, dtype=np.int32)
+        else:
+            if len(face) and not isinstance(face[0], (int, np.integer)):
+                face = _flatten(face)
+            face_tokens = np.asarray(face, dtype=np.int32) + tok.length
+        pos += 1
+        if pos + len(face_tokens) + 1 > cfg.label_seq_length:
+            # the reference's length filter counts 1 + len(face) a face
+            # (filters/filter_length.py:22-24), which under-counts nested and
+            # direction-token faces: say so rather than fail inside numpy
+            raise ValueError(
+                f"label sequence needs > {cfg.label_seq_length} tokens "
+                f"(face of {len(face_tokens)} tokens at position {pos}) — "
+                "raise token.len_label / label budget or filter the sample")
+        label[pos : pos + len(face_tokens)] = face_tokens
+        pos += len(face_tokens)
+        label[pos] = tok.SEP
+    label[pos] = tok.EOS  # overwrite the trailing SEP
+    return {
+        "label": label,
+        "label_mask": label == tok.PAD,
+        "num_label": pos + 1,
+    }
 
 
 def face_type_token(face_type: int, tok: TokenConfig) -> int:

@@ -1,7 +1,8 @@
-"""Anchor-parallel greedy decode engines (PyTorch counterpart of
-faceformer_tpu/decode.py; reference: model_para.py:181-241).
+"""Greedy decode engines (PyTorch counterpart of faceformer_tpu/decode.py;
+reference: model.py:169-219, model_para.py:181-241).
 
-Three engines, each mirroring its JAX twin as written:
+Anchor-parallel model (``greedy_decode_parallel``), three engines, each
+mirroring its JAX twin as written:
 
   - "reference": re-runs the decoder over a prefix buffer every step with a
     prefix key-padding mask and NO causal mask (the reference eval), on
@@ -24,6 +25,14 @@ step.
 Anchor quirk (replicated): anchor_mode="reference" seeds anchor row j with
 memory row j, WITHOUT the +4 token offset (model_para.py:201); rows at or
 past the sample's edge count start at the Other-type token.
+
+Flat model (``greedy_decode_single``), the "reference" and "causal_cache"
+engines (the JAX package has no fused engine for it). Its stops: with
+retire_rows=True a row retires at its first EOS and writes PAD after it,
+and the batch stops once every row has seen one (checked every
+``STOP_CHECK_EVERY`` steps, since the grid does not depend on it); with
+retire_rows=False the reference's count of EOS emissions, which stops when
+it EQUALS the batch size (model.py:205-210), checked every step.
 """
 
 from __future__ import annotations
@@ -263,4 +272,107 @@ def greedy_decode_parallel(
             nxt = masked_argmax(memory, pointer_t, padded_mask)
             out_tok, done = _retire(nxt, done, tok, retire_rows)
             tokens[:, :, step + 1] = out_tok
+        return {"predict": tokens}
+
+
+def _single_stop(step: int, eos, n: int, early_stop: bool, retire_rows: bool) -> bool:
+    """The flat engines' stop before ``step``: every row has seen an EOS
+    (retire_rows), or the EOS count equals the batch size."""
+    if not early_stop:
+        return False
+    if retire_rows:
+        return step % STOP_CHECK_EVERY == 0 and bool(eos.all())
+    return int(eos) == n
+
+
+def _single_next(nxt, eos, tok, retire_rows: bool):
+    """(tokens to write, new EOS state): retired rows write PAD; the
+    reference ablation counts every EOS emitted (decode.py:258-273)."""
+    if retire_rows:
+        nxt = torch.where(eos, torch.full_like(nxt, tok.PAD), nxt)
+        return nxt, eos | (nxt == tok.EOS)
+    return nxt, eos + (nxt == tok.EOS).sum()
+
+
+def greedy_decode_single(
+    model,
+    cfg: ModelConfig,
+    batch: Dict[str, torch.Tensor],
+    precision: str = "fp32",
+    mode: str = "reference",
+    early_stop: bool = True,
+    retire_rows: bool = True,
+    impl: str = "auto",
+) -> Dict[str, torch.Tensor]:
+    """Flat-sequence greedy decode (reference: model.py:169-219;
+    faceformer_tpu/decode.py:223-343). batch: input (N, L, P, D) float,
+    input_mask (N, L) bool, on the model's device. Returns predict (N, T)
+    int32 with T = label_seq_length: SOS, then one token a step.
+
+    "reference" re-runs the decoder over a prefix buffer every step (prefix
+    buckets, key-padded, no causal mask: the reference's bidirectional
+    eval); "causal_cache" runs one token a step through per-layer caches. A
+    post-LN config decodes through "reference" (the incremental engine is
+    pre-LN only). early_stop=False decodes the full token budget;
+    ``impl="plain"`` runs the kernels' plain versions, for comparisons."""
+    if mode not in ("reference", "causal_cache"):
+        raise ValueError(f"the flat model decodes with 'reference' or 'causal_cache', "
+                         f"not {mode!r}")
+    if mode != "reference" and not cfg.normalize_before:
+        mode = "reference"  # the incremental engine implements pre-LN only
+    dtype = compute_dtype(precision)
+    tok = cfg.token
+    with torch.no_grad():
+        memory, pos, padded_mask = encode(model, cfg, batch["input"], batch["input_mask"], dtype,
+                                          impl=impl)
+        n = memory.shape[0]
+        t_max = cfg.label_seq_length
+        dev = memory.device
+        query_pos = model.query_pos_table.to(dtype)
+        tokens = torch.full((n, t_max), tok.PAD, dtype=torch.int32, device=dev)
+        tokens[:, 0] = tok.SOS
+        eos = (torch.zeros(n, dtype=torch.bool, device=dev) if retire_rows
+               else torch.zeros((), dtype=torch.int64, device=dev))
+
+        if mode == "reference":
+            step = 0
+            for bucket in _prefix_buckets(t_max):
+                # steps s <= bucket - 2 fit this buffer (token s + 1 lands in it)
+                last = min(bucket - 2, t_max - 2)
+                while step <= last:
+                    if _single_stop(step, eos, n, early_stop, retire_rows):
+                        return {"predict": tokens}
+                    tgt = gather_memory_rows(memory, tokens[:, :bucket])
+                    prefix_pad = (torch.arange(bucket, device=dev) > step)[None, :]
+                    out = L.decoder_forward(
+                        model.decoder, tgt, memory, query_pos[None, :bucket], pos,
+                        num_head=cfg.num_head, activation=cfg.activation,
+                        normalize_before=cfg.normalize_before,
+                        tgt_key_padding_mask=prefix_pad, memory_key_padding_mask=padded_mask,
+                        impl=impl)
+                    pointer_t = L.linear(model.project, out[:, step])  # (N, E)
+                    nxt = masked_argmax(memory, pointer_t, padded_mask, impl=impl)
+                    nxt, eos = _single_next(nxt, eos, tok, retire_rows)
+                    tokens[:, step + 1] = nxt
+                    step += 1
+            return {"predict": tokens}
+
+        # causal_cache
+        head_dim = cfg.num_model // cfg.num_head
+        cross_k, cross_v = _cross_kv(model, memory, pos, cfg.num_head)  # (Lyr, N, S, H, hd)
+        cache_shape = (n, t_max, cfg.num_head, head_dim)
+        sk = [torch.zeros(cache_shape, dtype=dtype, device=dev)
+              for _ in range(cfg.num_decoder_layers)]
+        sv = [torch.zeros(cache_shape, dtype=dtype, device=dev)
+              for _ in range(cfg.num_decoder_layers)]
+        for step in range(t_max - 1):
+            if _single_stop(step, eos, n, early_stop, retire_rows):
+                break
+            x = gather_memory_rows(memory, tokens[:, step:step + 1])  # (N, 1, E)
+            out = _incremental_decoder_step(model, cfg, x, query_pos[step:step + 1], step,
+                                            sk, sv, cross_k, cross_v, padded_mask)
+            pointer_t = L.linear(model.project, out[:, 0])  # (N, E)
+            nxt = masked_argmax(memory, pointer_t, padded_mask, impl=impl)
+            nxt, eos = _single_next(nxt, eos, tok, retire_rows)
+            tokens[:, step + 1] = nxt
         return {"predict": tokens}

@@ -1,18 +1,76 @@
-"""Shared model core: encoder pass and pointer scoring (PyTorch counterpart
-of faceformer_tpu/models/common.py)."""
+"""Shared model core: the parameters, the encoder pass and pointer scoring
+(PyTorch counterpart of faceformer_tpu/models/common.py). Both SurfaceFormer
+variants use it."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch.nn.functional as F
 
 import torch
+from torch import nn
 
 from faceformer_tpu_torch.config import ModelConfig
+from faceformer_tpu_torch.device import require_device
 from faceformer_tpu_torch.models import layers as L
-from faceformer_tpu_torch.models.embedding import position_embedding, vanilla_embedding
+from faceformer_tpu_torch.models.embedding import (
+    VanillaEmbedding,
+    position_embedding,
+    vanilla_embedding,
+)
 from faceformer_tpu_torch.ops.pointer import pointer_argmax
+from faceformer_tpu_torch.params import init_parameters_
+
+
+class PointerNetwork(nn.Module):
+    """The parameters both SurfaceFormer variants share (the JAX
+    ``init_params`` tree, common.py:31-55): embedding, position tables,
+    encoder and decoder stacks, pointer projection. ``query_pos_len`` is
+    label_seq_length for the flat model and max_face_length for the parallel
+    one (reference: model.py:31-32, model_para.py:31-33).
+
+    Parameters are float32 and follow the JAX tree (``params.params_from_jax``
+    loads one); they are initialised from ``generator`` (xavier-uniform
+    matrices and tables, torch-default linear biases, zero attention biases)
+    on the CPU and then moved to ``device``, so a seed gives the same weights
+    on every device. The module's ``train()`` / ``eval()`` mode switches
+    nothing: dropout is on exactly when ``forward_train`` is given a
+    ``generator``, as ``rng`` switches it in the JAX package."""
+
+    def __init__(self, cfg: ModelConfig, query_pos_len: int, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        dev = require_device(device)
+        self.cfg = cfg
+        dim, ffn = cfg.num_model, cfg.num_feedforward
+        self.embed = VanillaEmbedding(cfg.num_points_per_line * cfg.point_dim, dim,
+                                      cfg.token.length)
+        self.pos_table = nn.Parameter(torch.empty(cfg.num_lines + cfg.token.length, dim))
+        self.query_pos_table = nn.Parameter(torch.empty(query_pos_len, dim))
+        self.encoder = L.Stack([L.EncoderLayer(dim, ffn)
+                                for _ in range(cfg.num_encoder_layers)], dim)
+        self.decoder = L.Stack([L.DecoderLayer(dim, ffn)
+                                for _ in range(cfg.num_decoder_layers)], dim)
+        self.project = nn.Linear(dim, dim)
+        init_parameters_(self, generator if generator is not None
+                         else torch.Generator().manual_seed(0))
+        self.to(dev)
+
+
+def draw_dropout_seeds(generator: Optional[torch.Generator], cfg: ModelConfig):
+    """The step's randomness, split three ways as the JAX forward splits its
+    rng: one row of dropout seeds per encoder layer, one per decoder layer,
+    and the scheduled-sampling seed. All None without a generator (no
+    dropout, no sampling)."""
+    if generator is None:
+        return None, None, None
+    n_enc = cfg.num_encoder_layers * L.ENCODER_SITES
+    n_dec = cfg.num_decoder_layers * L.DECODER_SITES
+    drawn = L.draw_seeds(generator, n_enc + n_dec + 1)
+    enc = [drawn[i:i + L.ENCODER_SITES] for i in range(0, n_enc, L.ENCODER_SITES)]
+    dec = [drawn[i:i + L.DECODER_SITES] for i in range(n_enc, n_enc + n_dec, L.DECODER_SITES)]
+    return enc, dec, drawn[-1]
 
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -93,14 +151,16 @@ def pointer_logits(memory: torch.Tensor, pointer: torch.Tensor) -> torch.Tensor:
 
 
 def masked_argmax(
-    memory: torch.Tensor, pointer_vec: torch.Tensor, padded_mask: torch.Tensor
+    memory: torch.Tensor, pointer_vec: torch.Tensor, padded_mask: torch.Tensor,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Greedy next-token pick (reference: model.py:161-167 select_next)
     through the pointer-argmax kernel: fp32 logits against memory rows,
     padded rows at the float32 minimum, first index on ties.
     memory (N, S, E), pointer_vec (N, ..., E), padded_mask (N, S) -> (N, ...)
-    int32."""
+    int32. ``impl="plain"`` runs the kernel's plain version."""
     rows = pointer_vec.reshape(pointer_vec.shape[0], -1, pointer_vec.shape[-1])
-    out = pointer_argmax(rows.contiguous(), memory.contiguous(), padded_mask.contiguous())
+    out = pointer_argmax(rows.contiguous(), memory.contiguous(), padded_mask.contiguous(),
+                         impl=impl)
     return out.reshape(pointer_vec.shape[:-1])
 

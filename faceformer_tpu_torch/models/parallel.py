@@ -13,55 +13,30 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-from torch import nn
 
 from faceformer_tpu_torch.config import ModelConfig
-from faceformer_tpu_torch.device import require_device
-from faceformer_tpu_torch.models.embedding import VanillaEmbedding
 from faceformer_tpu_torch.models import layers as L
 from faceformer_tpu_torch.models.common import (
+    PointerNetwork,
     compute_dtype,
+    draw_dropout_seeds,
     encode,
     gather_memory_rows,
     pad_target_time,
     padded_query_pos,
     pointer_logits,
 )
-from faceformer_tpu_torch.models.layers import DecoderLayer, EncoderLayer, Stack
-from faceformer_tpu_torch.params import init_parameters_
 
 
-class SurfaceFormerParallel(nn.Module):
-    """The anchor-parallel model. Parameters are float32 and follow the
-    JAX tree (``params.params_from_jax`` loads one); they are initialised
-    from ``generator`` (xavier-uniform matrices and tables, torch-default
-    linear biases, zero attention biases) on the CPU and then moved to
-    ``device``, so a seed gives the same weights on every device.
-
-    The module's ``train()`` / ``eval()`` mode switches nothing: dropout is
-    on exactly when ``forward_train`` is given a ``generator``, as ``rng``
-    switches it in the JAX package, and ``forward_eval`` never drops."""
+class SurfaceFormerParallel(PointerNetwork):
+    """The anchor-parallel model; its ``query_pos_table`` has
+    max_face_length rows. Parameters and their init: ``PointerNetwork``."""
 
     is_parallel = True
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  device="cuda"):
-        super().__init__()
-        dev = require_device(device)
-        self.cfg = cfg
-        dim, ffn = cfg.num_model, cfg.num_feedforward
-        self.embed = VanillaEmbedding(cfg.num_points_per_line * cfg.point_dim, dim,
-                                      cfg.token.length)
-        self.pos_table = nn.Parameter(torch.empty(cfg.num_lines + cfg.token.length, dim))
-        self.query_pos_table = nn.Parameter(torch.empty(cfg.max_face_length, dim))
-        self.encoder = Stack([EncoderLayer(dim, ffn) for _ in range(cfg.num_encoder_layers)],
-                             dim)
-        self.decoder = Stack([DecoderLayer(dim, ffn) for _ in range(cfg.num_decoder_layers)],
-                             dim)
-        self.project = nn.Linear(dim, dim)
-        init_parameters_(self, generator if generator is not None
-                         else torch.Generator().manual_seed(0))
-        self.to(dev)
+        super().__init__(cfg, cfg.max_face_length, generator=generator, device=device)
 
     def forward_train(self, batch: Dict[str, torch.Tensor],
                       generator: Optional[torch.Generator] = None, precision: str = "fp32",
@@ -80,16 +55,7 @@ class SurfaceFormerParallel(nn.Module):
         cfg = self.cfg
         dtype = compute_dtype(precision)
         label = batch["label"].to(torch.int32)
-        # randomness splits three ways: encoder, decoder, sampling
-        enc_seeds = dec_seeds = ss_seed = None
-        if generator is not None:
-            n_enc = cfg.num_encoder_layers * L.ENCODER_SITES
-            n_dec = cfg.num_decoder_layers * L.DECODER_SITES
-            drawn = L.draw_seeds(generator, n_enc + n_dec + 1)
-            enc_seeds = [drawn[i:i + L.ENCODER_SITES] for i in range(0, n_enc, L.ENCODER_SITES)]
-            dec_seeds = [drawn[i:i + L.DECODER_SITES]
-                         for i in range(n_enc, n_enc + n_dec, L.DECODER_SITES)]
-            ss_seed = drawn[-1]
+        enc_seeds, dec_seeds, ss_seed = draw_dropout_seeds(generator, cfg)
 
         memory, pos, padded_mask = encode(self, cfg, batch["input"], batch["input_mask"], dtype,
                                           seeds=enc_seeds, impl=impl)

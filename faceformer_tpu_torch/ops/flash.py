@@ -197,12 +197,28 @@ def _check(q, k, v, bias) -> None:
 
 
 def _check_smem(lib: str, entry: str, dt: int, sk: int, hd: int) -> None:
+    """Raise unless the kernel that takes (dtype, Sk, hd) fits a block's
+    shared memory. Key sides past the whole-row kernels' reach run their
+    key-tiled kernels, so only a head dim whose single key tile does not
+    fit is refused."""
     smem_fn = getattr(_build.load(lib), entry)
     smem_fn.argtypes = [ctypes.c_int] * 3
     smem_fn.restype = ctypes.c_size_t
-    if smem_fn(dt, sk, hd) > SMEM_LIMIT:
-        raise ValueError(f"key length {sk} at head dim {hd} does not fit the "
-                         "kernel's shared-memory tile")
+    need = smem_fn(dt, sk, hd)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"key length {sk} at head dim {hd}: even one key tile needs {need} B "
+                         f"of shared memory, above the {SMEM_LIMIT} B a block may use on sm_90")
+
+
+def key_tile(kernel: str, dtype: torch.dtype, sk: int, hd: int) -> int:
+    """Keys a tile of the kernel that takes this call ("fwd": K2; "bwd":
+    K3's dq kernel), or 0 where the whole key side is staged at once."""
+    lib, entry = {"fwd": ("flash", "flash_key_tile"), "bwd": ("flash_bwd", "flash_bwd_key_tile")}[
+        kernel]
+    fn = getattr(_build.load(lib), entry)
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return int(fn(_DTYPES[dtype], sk, hd))
 
 
 _DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
@@ -216,8 +232,9 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
     (N, Sq, H) fp32). ``dropout_rate`` > 0 drops attention probabilities
     with the keep mask of ``seed``.
 
-    CUDA tensors launch the kernel; CPU tensors (or impl="plain") run
-    ``flash_attention_plain``."""
+    CUDA tensors launch the kernel (its key-tiled form where the key side
+    does not fit a block's shared memory); CPU tensors (or impl="plain")
+    run ``flash_attention_plain``."""
     _check(q, k, v, bias)
     n, sq, h, hd = q.shape
     sk = k.shape[1]
@@ -253,8 +270,9 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
     shape and dtype. The bias is a mask and the seed is RNG material:
     neither has a gradient.
 
-    CUDA tensors launch the kernel; CPU tensors (or impl="plain") run
-    ``flash_attention_bwd_plain``."""
+    CUDA tensors launch the kernels (a key-tiled dq kernel where the key
+    side does not fit a block's shared memory); CPU tensors (or
+    impl="plain") run ``flash_attention_bwd_plain``."""
     _check(q, k, v, bias)
     n, sq, h, hd = q.shape
     sk = k.shape[1]

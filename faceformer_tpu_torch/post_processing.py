@@ -1,8 +1,9 @@
-"""Eval-time face post-processing (the serving subset of
-faceformer_tpu/post_processing.py; reference: faceformer/post_processing.py).
+"""Eval-time face post-processing (a copy of faceformer_tpu/post_processing.py;
+reference: faceformer/post_processing.py).
 
 Predicted faces are kept only if their edge sequence chains into closed
 loops; enclosed faces are canonicalized (loops rolled to min index, sorted);
+faces that reuse an undirected edge an earlier face claimed can be dropped;
 coedge indices are mapped to canonical edge ids via the dataset's pairings.
 """
 
@@ -24,6 +25,27 @@ def filter_faces_by_encloseness(
         loops = is_face_enclosed(edges, face, tol)
         if loops:
             filtered.append((face_type, canonicalize_loops(loops)))
+    return filtered
+
+
+def filter_faces_by_coedge(pairings: Dict, faces: Sequence) -> List:
+    """Drop faces that reuse an undirected edge already claimed by an earlier
+    face (reference: post_processing.py:23-39). ``pairings`` maps lower
+    coedge index -> higher twin (int keys); ``faces`` are (type, loops)."""
+    filtered = []
+    used = set()
+    for face in faces:
+        indices = [i for loop in face[1] for i in loop]
+        drop = False
+        for index in indices:
+            if index in pairings:
+                index = pairings[index]
+                if index in used:
+                    drop = True
+                    break
+            used.add(index)
+        if not drop:
+            filtered.append(face)
     return filtered
 
 

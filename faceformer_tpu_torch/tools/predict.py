@@ -2,9 +2,10 @@
 counterpart of faceformer_tpu/tools/predict.py).
 
 Any dict with an "edges" list of 2D polylines decodes to per-sample face
-lists, post-processed exactly as the test loop does: rows parsed at their
-first face-type token, the enclosedness filter, coedge mapping and the
-majority vote on types.
+lists, post-processed exactly as the test loop does: (F, T) anchor-parallel
+rows parsed at their first face-type token, or (T,) flat grids split at SEP
+(direction-token pairs for that flavor), then the enclosedness filter,
+coedge mapping and the majority vote on types.
 
     python -m faceformer_tpu_torch.tools.predict --config configs/ours.yml \
         --ckpt <checkpoint> --root <dir with json/*.json> [--out DIR] [--device cpu]
@@ -30,7 +31,7 @@ from faceformer_tpu_torch.data.batching import collate
 from faceformer_tpu_torch.data.packing import pack_input_edges
 from faceformer_tpu_torch.device import require_device
 from faceformer_tpu_torch.train.metrics import FaceMetrics
-from faceformer_tpu_torch.train.trainer import Harness, NumpyJSONEncoder
+from faceformer_tpu_torch.train.trainer import Harness, NumpyJSONEncoder, decode_grid
 
 
 def predict_faces(model, cfg: Config, raw_samples: Sequence[Dict], device="cuda",
@@ -38,8 +39,9 @@ def predict_faces(model, cfg: Config, raw_samples: Sequence[Dict], device="cuda"
     """Decode predicted faces for raw samples (no labels needed).
 
     Batches of ``cfg.batch_size_valid`` samples (the last one filled by
-    repeating its final sample) decode with ``cfg.decode``'s mode,
-    precision and anchor mode on ``device``, where ``model`` must live.
+    repeating its final sample) decode as the harness decodes
+    (``trainer.decode_grid``: ``cfg.decode``'s mode, precision and, for the
+    parallel model, anchor mode) on ``device``, where ``model`` must live.
     Returns per-sample lists of (majority-vote type, sorted unique edge
     ids). early_stop=False decodes the full token budget (benchmarking)."""
     dev = require_device(device)
@@ -56,12 +58,9 @@ def predict_faces(model, cfg: Config, raw_samples: Sequence[Dict], device="cuda"
         chunk += [chunk[-1]] * (batch_size - valid)
         batch = collate([pack_input_edges(s["edges"], cfg.model) for s in chunk])
         batch = {k: torch.as_tensor(v).to(model_dev) for k, v in batch.items()}
-        predict = model.forward_eval(
-            batch, precision=cfg.decode.precision, mode=cfg.decode.mode,
-            anchor_mode=cfg.decode.anchor_mode, early_stop=early_stop)["predict"]
-        predict = predict.cpu().numpy()
+        predict = decode_grid(model, cfg, batch, early_stop=early_stop).cpu().numpy()
         for i in range(valid):
-            grid = predict[i]  # (F, T)
+            grid = predict[i]  # (F, T) parallel, (T,) flat
             out = engine.evaluate_sample(grid, np.zeros_like(grid), chunk[i])
             results.append(out["predictions"])
     return results

@@ -1,10 +1,13 @@
-"""Face-level metrics for anchor-parallel grids (the parallel-model subset of
-faceformer_tpu/train/metrics.py; reference: faceformer/trainer.py:181-300).
+"""Face-level metrics (PyTorch port's copy of faceformer_tpu/train/metrics.py;
+reference: faceformer/trainer.py:153-300).
 
-  - each grid row is cut at its first face-type token, which doubles as EOS
-    and encodes the type;
-  - coedge datasets filter by enclosedness, compute a coedge-sequence
-    accuracy, then map coedges to canonical edges;
+  - flat single-sequence grids split at EOS then SEP (direction-token grids
+    into [edge pointer, DIR0/DIR1] pairs); anchor-parallel grid rows are
+    cut at their first face-type token, which doubles as EOS and encodes
+    the type;
+  - coedge and direction-token datasets filter by enclosedness, compute a
+    coedge-sequence accuracy, then map coedges to canonical edges
+    (direction-token faces: to undirected edge sets);
   - faces canonicalize to (majority-vote type, sorted unique edge set);
   - TP = exact set match; precision = TP/|pred|, recall = TP/|label|,
     type_acc = type matches / TP;
@@ -47,6 +50,66 @@ def _coedge_seq_accuracy(predict_faces, label_faces) -> Tuple[float, float]:
     return accuracy, type_acc
 
 
+def _upto_first_eos(seq: np.ndarray, tok: TokenConfig) -> np.ndarray:
+    return np.split(seq, np.where(seq == tok.EOS)[0] + 1)[0]
+
+
+def parse_faces(
+    predicts: np.ndarray, labels: np.ndarray, num_edges: int, tok: TokenConfig
+) -> Tuple[List[Face], List[Face]]:
+    """Parse flat single-sequence grids (reference: trainer.py:153-177).
+    Returns (predict_faces, label_faces); types are always 0 for this task
+    flavor."""
+    label = _upto_first_eos(labels, tok)
+    predict = _upto_first_eos(predicts, tok)
+
+    label_faces = []
+    for chunk in np.split(label, np.where(label == tok.SEP)[0] + 1):
+        vals = chunk[:-1] - tok.length  # strip SEP/EOS, remove offset
+        vals = vals[(vals >= 0) & (vals < num_edges)]
+        if len(vals) > 0:
+            label_faces.append((0, tuple(vals.tolist())))
+
+    predict_faces = []
+    for chunk in np.split(predict, np.where(predict == tok.SEP)[0] + 1):
+        if len(chunk) > 1:
+            vals = chunk[:-1] - tok.length
+            vals = vals[(vals >= 0) & (vals < num_edges)]
+            if len(vals) > 0:
+                predict_faces.append((0, tuple(vals.tolist())))
+
+    return predict_faces, label_faces
+
+
+def parse_directed_faces(
+    predicts: np.ndarray, labels: np.ndarray, num_edges: int, tok: TokenConfig
+) -> Tuple[List[Face], List[Face]]:
+    """Parse flat grids of the --direction_token flavor: faces are streams of
+    [edge_pointer, DIR0/DIR1] pairs between SEPs. Malformed fragments (an
+    edge pointer without a following DIR token, or vice versa) are skipped:
+    the eval-time tolerance for model hallucinations, as the plain parser
+    clips out-of-range pointers."""
+
+    def parse(seq):
+        faces = []
+        for chunk in np.split(seq, np.where(seq == tok.SEP)[0] + 1):
+            arr = chunk[:-1] if len(chunk) else chunk
+            items, i = [], 0
+            while i < len(arr):
+                v = int(arr[i]) - tok.length
+                if (0 <= v < num_edges and i + 1 < len(arr)
+                        and int(arr[i + 1]) in (tok.DIR0, tok.DIR1)):
+                    items.append((v, int(arr[i + 1]) - tok.DIR0))
+                    i += 2
+                else:
+                    i += 1
+            if items:
+                faces.append((0, tuple(items)))
+        return faces
+
+    return parse(_upto_first_eos(predicts, tok)), parse(_upto_first_eos(labels, tok))
+
+
 def parse_parallel_faces(
     predicts: np.ndarray, labels: np.ndarray, num_edges: int, tok: TokenConfig
 ) -> Tuple[List[Face], List[Face]]:
@@ -86,15 +149,31 @@ class FaceMetrics:
     def evaluate_sample(
         self, predicts: np.ndarray, labels: np.ndarray, raw_data: Dict
     ) -> Dict:
-        """predicts/labels: (F, T) anchor-parallel token grids."""
-        if labels.ndim != 2:
-            raise ValueError("the port evaluates anchor-parallel (F, T) grids only")
+        """predicts/labels: (F, T) anchor-parallel or (T,) flat token grids."""
         edges = raw_data["edges"]
-        predict_faces, label_faces = parse_parallel_faces(
-            predicts, labels, len(edges), self.tok)
+        if labels.ndim == 2:
+            predict_faces, label_faces = parse_parallel_faces(
+                predicts, labels, len(edges), self.tok)
+        elif self.post_process.direction_token:
+            predict_faces, label_faces = parse_directed_faces(
+                predicts, labels, len(edges), self.tok)
+        else:
+            predict_faces, label_faces = parse_faces(
+                predicts, labels, len(edges), self.tok)
 
         out: Dict = {}
-        if self.post_process.is_coedge:
+        # the oriented flavors share the filter -> coedge-seq-accuracy ->
+        # flatten-to-edge-sets pipeline; only the final mapping differs
+        to_edge_sets = None
+        if self.post_process.direction_token:
+            # oriented loops must chain; after the filter, faces compare as
+            # undirected edge sets (the flavor stores each edge once)
+            def to_edge_sets(faces):
+                return [
+                    (ftype, [i for loop in loops for (i, _o) in loop])
+                    for ftype, loops in faces
+                ]
+        elif self.post_process.is_coedge:
             # label-free serving passes wireframes without pairings: the
             # mapping then keeps coedge indices as they are
             pairings = raw_data.get("pairings", {})
@@ -106,6 +185,7 @@ class FaceMetrics:
                     for ftype, loops in faces
                 ]
 
+        if to_edge_sets is not None:
             tol = self.post_process.enclosedness_tol
             predict_faces = filter_faces_by_encloseness(edges, predict_faces, tol)
             label_faces = filter_faces_by_encloseness(edges, label_faces, tol)
@@ -154,13 +234,15 @@ class FaceMetrics:
         the batch token accuracy over labels > PAD (reference:
         trainer.py:296-300).
 
-        Reference quirk kept on purpose: the elementwise grid comparison
-        pairs decode rows (anchored per edge index) with label rows (packed
-        in face/loop/rotation order, data_para.py:71-95), so the rows
-        generally hold different rotations and even a perfect model scores
-        below 1.0. The reference computes the same number on the same
-        grids; it is a training-progress diagnostic, never a headline
-        metric (checkpoints are chosen by valid_precision)."""
+        Reference quirk kept on purpose: for the parallel model the
+        elementwise grid comparison pairs decode rows (anchored per edge
+        index) with label rows (packed in face/loop/rotation order,
+        data_para.py:71-95), so the rows generally hold different rotations
+        and even a perfect model scores below 1.0. The reference computes
+        the same number on the same grids; it is a training-progress
+        diagnostic, never a headline metric (checkpoints are chosen by
+        valid_precision). The flat model's rows are aligned (SOS at column
+        0 on both sides), where this is a true token accuracy."""
         results: Dict[str, List] = {
             k: []
             for k in ("precision", "recall", "type_acc", "accuracy",

@@ -8,8 +8,11 @@ checkpoints:
     the NaN skip), one step per batch, in the model's own precision;
   - batches reach the card one ahead of the step, through pinned host
     memory and non-blocking copies;
-  - eval decodes with ``cfg.decode`` and scores on the host, one
-    device->host copy of the token grid per batch.
+  - eval decodes with ``cfg.decode`` (``decode_grid``) and scores on the
+    host, one device->host copy of the token grid per batch. The flat
+    SurfaceFormer has no fused engine: ``decode.mode: fused`` decodes it
+    with causal_cache, as the JAX harness does (trainer.py:161-165); that
+    is the reference's behaviour, not a fallback.
 
 One card. ``trainer.num_devices`` 0 or 1 means the card the harness runs on;
 anything that would take more than one card raises (multi-device runs are
@@ -36,6 +39,7 @@ from faceformer_tpu_torch.data.batching import iter_batches
 from faceformer_tpu_torch.data.dataset import ABCDataset, ABCDatasetParallel
 from faceformer_tpu_torch.device import require_device
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
 from faceformer_tpu_torch.params import params_from_jax
 from faceformer_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -51,7 +55,24 @@ DATASET_REGISTRY = {
     "ABCDataset_Parallel": ABCDatasetParallel,
     "ABCDatasetParallel": ABCDatasetParallel,
 }
-MODEL_REGISTRY = {"SurfaceFormer_Parallel": SurfaceFormerParallel}
+MODEL_REGISTRY = {"SurfaceFormer": SurfaceFormer,
+                  "SurfaceFormer_Parallel": SurfaceFormerParallel}
+
+
+def decode_grid(model, cfg: Config, batch: Dict[str, torch.Tensor],
+                early_stop: bool = True) -> torch.Tensor:
+    """The token grid ``cfg.decode`` gives for a batch on the model's device:
+    (N, F, T) for the parallel model, (N, T) for the flat one, whose
+    ``fused`` mode decodes with causal_cache (JAX trainer.py:161-165)."""
+    mode = cfg.decode.mode
+    with torch.no_grad():
+        if model.is_parallel:
+            return model.forward_eval(batch, precision=cfg.decode.precision, mode=mode,
+                                      anchor_mode=cfg.decode.anchor_mode,
+                                      early_stop=early_stop)["predict"]
+        mode = "causal_cache" if mode == "fused" else mode
+        return model.forward_eval(batch, precision=cfg.decode.precision, mode=mode,
+                                  early_stop=early_stop)["predict"]
 
 
 class NumpyJSONEncoder(json.JSONEncoder):
@@ -97,10 +118,6 @@ class Harness:
                  device="cuda"):
         self.cfg = cfg
         self.device = require_device(device)
-        if cfg.model_class not in MODEL_REGISTRY:
-            raise NotImplementedError(
-                f"model_class {cfg.model_class!r} is not ported; the port runs "
-                "SurfaceFormer_Parallel (the flat SurfaceFormer is ROADMAP.md Queue 1 item 5)")
         self.model_cls = MODEL_REGISTRY[cfg.model_class]
         self.dataset_cls = DATASET_REGISTRY[cfg.dataset_class]
         _check_devices(cfg.trainer.num_devices, self.device)
@@ -221,11 +238,7 @@ class Harness:
         return ds, iter_batches(items, batch_size, pad_to_full=True)
 
     def _decode(self, model, device_batch) -> torch.Tensor:
-        cfg = self.cfg
-        with torch.no_grad():
-            return model.forward_eval(device_batch, precision=cfg.decode.precision,
-                                      mode=cfg.decode.mode,
-                                      anchor_mode=cfg.decode.anchor_mode)["predict"]
+        return decode_grid(model, self.cfg, device_batch)
 
     def validate(self, model, logger: Optional[MetricsLogger] = None,
                  step: int = 0) -> Dict[str, float]:

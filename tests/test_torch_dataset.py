@@ -105,9 +105,25 @@ def test_parse_splits_list_equals_jax(corpus, tmp_path):
         dataset.parse_splits_list(corpus, ["train.csv"])
 
 
-def test_flat_dataset_names_its_queue_item(corpus, tiny_model_cfg):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        dataset.ABCDataset(corpus, ["train.txt"], port_model_cfg(tiny_model_cfg))
+def test_flat_dataset_names_its_queue_item(tmp_path, tiny_model_cfg, monkeypatch):
+    """The flat model's dataset, which named its queue item until the flat
+    SurfaceFormer was ported, now packs a direction-token corpus on disk as
+    the JAX package does (configs/synthetic-dirtok-big.yml's flavour)."""
+    import dataclasses
+
+    from faceformer_tpu.config import TokenConfig
+
+    monkeypatch.setenv("FACEFORMER_NATIVE_LOADER", "0")  # JAX's Python path
+    cfg = dataclasses.replace(tiny_model_cfg, label_seq_length=256,
+                              token=TokenConfig(DIR0=4, DIR1=5, length=6))
+    synthetic_data.generate(str(tmp_path), num=8, seed=2, direction_token=True,
+                            max_edges=cfg.num_lines, max_label_len=250, split=(0.5, 0.25, 0.25))
+    theirs = jax_dataset.ABCDataset(str(tmp_path), ["train.txt", "test.txt"], cfg)
+    ours = dataset.ABCDataset(str(tmp_path), ["train.txt", "test.txt"], port_model_cfg(cfg))
+    assert ours.info_files == theirs.info_files and len(ours) == len(theirs) == 6
+    for i in range(len(ours)):
+        assert_items_equal(ours[i], theirs[i])
+        assert (ours[i]["label"] == cfg.token.DIR0).any()
 
 
 # (size, batch, shuffle, drop_last, pad_to_full, process_count)

@@ -15,9 +15,15 @@ import pytest
 import torch
 
 from faceformer_tpu_torch import ops
-from faceformer_tpu_torch.config import ModelConfig, config_from_dict
-from faceformer_tpu_torch.decode import NEG, _cross_kv, greedy_decode_parallel
+from faceformer_tpu_torch.config import ModelConfig, TokenConfig, config_from_dict
+from faceformer_tpu_torch.decode import (
+    NEG,
+    _cross_kv,
+    greedy_decode_parallel,
+    greedy_decode_single,
+)
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
 from faceformer_tpu_torch.ops.decode_step import (
     decode_gemm,
     decode_gemm_plain,
@@ -28,6 +34,7 @@ from faceformer_tpu_torch.ops.flash import (
     flash_attention_bwd,
     flash_attention_fwd,
     keep_mask_on_card,
+    key_tile,
     padding_mask_bias,
     philox_keep_mask,
 )
@@ -62,9 +69,11 @@ def launched(name, fn, *args, **kwargs):
 # (n, r, s, e): row counts off the kernel's 16- and 32-row blocks; memory
 # lengths of one row, off the 128- and 256-row tiles, the serving length and
 # past one 256-row tile; embedding widths of 64, 256, 512 and 1,024 (one to
-# sixteen 64-column boxes)
+# sixteen 64-column boxes); the flat model's step: one row a sample against
+# 116 memory rows (configs/synthetic-dirtok-big.yml), 31 rows of each block
+# empty and the memory off the TMA box
 POINTER_SHAPES = [(4, 70, 90, 64), (3, 45, 1, 256), (3, 45, 17, 512), (20, 216, 220, 512),
-                  (2, 100, 300, 256), (2, 40, 70, 1024)]
+                  (2, 100, 300, 256), (2, 40, 70, 1024), (32, 1, 116, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -254,6 +263,65 @@ def check_flash_bwd(cuda_device, dtype, tol, rate, n, sq, sk, causal, h, hd):
         assert not torch.equal(got[2], other[2])
 
 
+# Key sides past the whole-row kernels' shared memory, which run the
+# key-tiled kernels (n, sq, sk, causal, hd): the flat model's causal decoder
+# self-attention at label_seq_length 512, a ragged non-causal 1,000 keys off
+# the 128-key tile, and at hd = 32 (where the whole-row kernels reach
+# further: K2 fp32 ~890 keys, bf16 1,411, K3 702) 1,500 causal keys and
+# 1,000 non-causal ones. (fwd, bwd) say which tiled: K2's CUDA-core kernel
+# stages 512 bf16 keys whole at hd = 64 (it holds 789).
+LONG_KEY_SHAPES = [((2, 512, 512, True, 64), {"fp32": (1, 1), "bf16": (0, 1)}),
+                   ((2, 300, 1000, False, 64), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((1, 1500, 1500, True, 32), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((2, 200, 1000, False, 32), {"fp32": (1, 1), "bf16": (0, 1)})]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd",
+                         [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 3e-2)])
+@pytest.mark.parametrize("shape,tiled", LONG_KEY_SHAPES,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}-{'causal' if s[3] else 'full'}-hd{s[4]}"
+                              for s, _ in LONG_KEY_SHAPES])
+def test_flash_long_keys_on_card(cuda_device, dtype, tol_fwd, tol_bwd, rate, shape, tiled):
+    """K2 and K3 past the whole-row kernels' shared memory against their
+    plain versions, the keep mask the forward applied read back through a
+    one-hot v (bit for bit), and both bitwise repeatable."""
+    n, sq, sk, causal, hd = shape
+    h = 2
+    key = "fp32" if dtype == torch.float32 else "bf16"
+    assert (bool(key_tile("fwd", dtype, sk, hd)), bool(key_tile("bwd", dtype, sk, hd))) == \
+        tuple(map(bool, tiled[key]))
+    q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=h, hd=hd)
+    kw = dict(causal=causal, dropout_rate=rate, seed=21)
+    out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, **kw)
+    out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
+    assert float((out.float() - out_p.float()).abs().max()) <= tol_fwd
+    assert float((lse - lse_p).abs().max()) <= tol_fwd
+    again = flash_attention_fwd(q, k, v, bias, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    if rate:
+        keep = philox_keep_mask(21, n, h, sq, sk, rate, device=cuda_device)
+        live = (bias == 0)[:, None, None, :].expand(n, h, sq, sk).clone()
+        if causal:
+            live &= ~torch.ones((sq, sk), dtype=torch.bool, device=cuda_device).triu(1)
+        for w0 in range(0, sk, hd):
+            width = min(hd, sk - w0)
+            v1 = torch.zeros_like(v)
+            idx = torch.arange(width, device=cuda_device)
+            v1[:, w0 + idx, :, idx] = 1.0
+            p_used = flash_attention_fwd(q, k, v1, bias, **kw)[0][..., :width].permute(0, 2, 1, 3)
+            window = slice(w0, w0 + width)
+            assert torch.equal((p_used != 0) & live[..., window],
+                               keep[..., window] & live[..., window])
+    got = launched("flash_bwd", flash_attention_bwd, q, k, v, bias, lse_p, do, **kw)
+    want = flash_attention_bwd(q, k, v, bias, lse_p, do, impl="plain", **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert rel_err(a, b) <= tol_bwd, (name, rel_err(a, b))
+    again = flash_attention_bwd(q, k, v, bias, lse_p, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def decode_state(dev, dtype, n=3, step=5, seed=2, cfg=CFG):
     """A mid-decode state from a seeded model (biases and LayerNorms
     jittered off their init values): cache positions < step set."""
@@ -426,3 +494,78 @@ def test_train_step_kernels_equal_plain_on_card(cuda_device, dropout):
             assert float(grads_k[name].abs().max()) <= 1e-5 and float(g.abs().max()) <= 1e-5
         else:
             assert rel_err(grads_k[name], g) <= 1e-3, name
+
+
+# the flat model with a label budget past both kernels' whole-row reach in
+# fp32 (the decoder self-attention runs at Sq = Sk = 520: K2 and K3 tiled)
+FLAT_CFG = ModelConfig(num_points_per_line=8, num_lines=40, label_seq_length=521,
+                       num_model=128, num_head=2, num_feedforward=256, num_encoder_layers=2,
+                       num_decoder_layers=2, dropout=0.0,
+                       token=TokenConfig(DIR0=4, DIR1=5, length=6))
+
+
+def flat_case(dev, n=2, seed=13):
+    """A seeded flat model (biases and LayerNorms jittered) and a batch of
+    seeded direction-token-like labels: SOS, [edge, DIR] pairs and SEPs,
+    EOS, then PAD."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    model = SurfaceFormer(FLAT_CFG, generator=gen, device=dev)
+    jitter_affine_(model, gen)
+    tok, lines, t = FLAT_CFG.token, FLAT_CFG.num_lines, FLAT_CFG.label_seq_length
+    num = rng.integers(10, lines + 1, n)
+    label = np.zeros((n, t), np.int32)
+    for i in range(n):
+        size = int(rng.integers(t // 2, t - 2))
+        body = rng.integers(tok.length, tok.length + num[i], size)
+        body[1::2] = rng.integers(tok.DIR0, tok.DIR1 + 1, len(body[1::2]))
+        body[rng.random(size) < 0.05] = tok.SEP
+        label[i, 0], label[i, 1:size + 1], label[i, size + 1] = tok.SOS, body, tok.EOS
+    batch = {"input": rng.uniform(-1, 1, (n, lines, FLAT_CFG.num_points_per_line, 2)
+                                  ).astype(np.float32),
+             "input_mask": np.arange(lines)[None] >= num[:, None],
+             "label": label, "label_mask": label == tok.PAD}
+    return model, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def test_flat_forward_backward_kernels_equal_plain_on_card(cuda_device):
+    """The flat model's forward_train and backward through the kernels (K2
+    and K3 key-tiled in the decoder self-attention at 520 keys) against
+    their plain versions, fp32: launches, loss and every gradient."""
+    from faceformer_tpu_torch.train.loss import pointer_cross_entropy
+
+    results = {}
+    for impl in ("auto", "plain"):
+        model, batch = flat_case(cuda_device)
+        ops.reset_launches()
+        out = model.forward_train(batch, impl=impl)
+        loss, _ = pointer_cross_entropy(out, FLAT_CFG.token)
+        loss.backward()
+        calls = FLAT_CFG.num_encoder_layers + 2 * FLAT_CFG.num_decoder_layers
+        want = (calls, calls) if impl == "auto" else (0, 0)
+        assert (ops.LAUNCHES["flash_fwd"], ops.LAUNCHES["flash_bwd"]) == want
+        results[impl] = (loss.detach(), {k: p.grad.clone() for k, p in model.named_parameters()})
+    assert key_tile("fwd", torch.float32, 520, 64) and key_tile("bwd", torch.float32, 520, 64)
+    (loss_k, grads_k), (loss_p, grads_p) = results["auto"], results["plain"]
+    assert torch.isfinite(loss_k) and abs(float(loss_k) - float(loss_p)) <= 1e-5
+    for name, g in grads_p.items():
+        if name.endswith("attn.k.bias"):
+            assert float(grads_k[name].abs().max()) <= 1e-5 and float(g.abs().max()) <= 1e-5
+        else:
+            assert rel_err(grads_k[name], g) <= 1e-3, name
+
+
+@pytest.mark.parametrize("mode", ["reference", "causal_cache"])
+def test_flat_decode_kernels_equal_plain_on_card(cuda_device, mode):
+    """greedy_decode_single through K1 and K2 equals its run through the
+    plain versions, fp32, the full token budget (K1 at one row a sample)."""
+    model, batch = flat_case(cuda_device, n=3)
+    grids = {}
+    for impl in ("auto", "plain"):
+        ops.reset_launches()
+        grids[impl] = greedy_decode_single(model, FLAT_CFG, batch, mode=mode, early_stop=False,
+                                           impl=impl)["predict"]
+        if impl == "auto":
+            assert ops.LAUNCHES["pointer_argmax"] == FLAT_CFG.label_seq_length - 1
+            assert ops.LAUNCHES["flash_fwd"] > 0
+    assert torch.equal(grids["auto"], grids["plain"])

@@ -190,9 +190,10 @@ def test_harness_refuses_what_is_not_ported(tiny_model_cfg):
     with pytest.raises(NotImplementedError, match="item 7"):
         Harness(config_from_dict({**config_to_dict(cfg), "trainer": {"num_devices": 2}}),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Harness(config_from_dict({**config_to_dict(cfg), "model_class": "SurfaceFormer"}),
-                device="cpu")
+    # the flat SurfaceFormer is ported now: the harness builds it
+    flat = Harness(config_from_dict({**config_to_dict(cfg), "model_class": "SurfaceFormer",
+                                     "dataset_class": "ABCDataset"}), device="cpu")
+    assert type(flat.init_state()["model"]).__name__ == "SurfaceFormer"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Harness(cfg)  # the card is the default

@@ -15,8 +15,10 @@ from faceformer_tpu.data.batching import collate
 from faceformer_tpu.data.dataset import ABCDatasetParallel
 from faceformer_tpu.geometry.fixtures import build_sample, make_box, make_prism
 from faceformer_tpu.models.parallel import SurfaceFormerParallel as JaxParallel
+from faceformer_tpu.models.surfaceformer import SurfaceFormer as JaxFlat
 from faceformer_tpu_torch.config import config_from_dict
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
 from faceformer_tpu_torch.params import params_from_jax
 
 
@@ -39,13 +41,15 @@ def port_model_cfg(jax_model_cfg):
 AFFINE_LEAVES = ("b", "bq", "bk", "bv", "bo", "scale", "bias")
 
 
-def jax_params(cfg, seed: int = 0, jitter: float = 0.1):
+def jax_params(cfg, seed: int = 0, jitter: float = 0.1, flat: bool = False):
     """A JAX-initialised parameter tree, as numpy arrays, with N(0, jitter)
     noise added to every bias and every LayerNorm scale and bias. The init
     leaves attention biases at 0 and LayerNorms at the identity, so without
     the noise a port that dropped or misread one of them would still
-    agree."""
-    tree = jax.tree.map(np.asarray, JaxParallel.init(jax.random.PRNGKey(seed), cfg))
+    agree. ``flat`` gives the flat SurfaceFormer's tree (a query_pos_table
+    of label_seq_length rows), else the anchor-parallel model's."""
+    model = JaxFlat if flat else JaxParallel
+    tree = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(seed), cfg))
     rng = np.random.default_rng(seed)
 
     def jitter_(node):
@@ -59,9 +63,11 @@ def jax_params(cfg, seed: int = 0, jitter: float = 0.1):
     return tree
 
 
-def port_model(jax_model_cfg, tree) -> SurfaceFormerParallel:
-    """The port's model on the CPU, loaded with a JAX tree."""
-    model = SurfaceFormerParallel(port_model_cfg(jax_model_cfg), device="cpu")
+def port_model(jax_model_cfg, tree, flat: bool = False):
+    """The port's model on the CPU, loaded with a JAX tree: the flat
+    SurfaceFormer with ``flat``, else SurfaceFormerParallel."""
+    cls = SurfaceFormer if flat else SurfaceFormerParallel
+    model = cls(port_model_cfg(jax_model_cfg), device="cpu")
     params_from_jax(model, tree)
     return model
 
