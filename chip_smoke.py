@@ -5,8 +5,10 @@
 
 Phases (each prints one or more lines; any failure exits non-zero):
   1. device: the card, its power limit, and the nvcc build of every kernel
-     with ptxas's register / shared-memory / spill lines, and the count of
-     wgmma (HGMMA) instructions in the fused decode step's library;
+     with ptxas's register / shared-memory / spill lines, the count of
+     wgmma (HGMMA) instructions in the fused decode step's library and of
+     mma.sync (HMMA) instructions in each instantiation of K2's tensor-core
+     key-tiled kernel;
   2. kernels against their plain PyTorch versions at the full `ours` width
      (configs/ours.yml: d=512, 8 heads, FFN 1024, 6+6 layers, L=216, T=37),
      in fp32 and bf16: the serving kernels at batch N=20, K4's bf16 gates
@@ -53,16 +55,18 @@ Phases (each prints one or more lines; any failure exits non-zero):
   6. the flat SurfaceFormer at the width of configs/synthetic-dirtok-big.yml
      (d=512, 8 heads, FFN 1024, 6+6 layers, S=116 memory rows,
      label_seq_length 512, direction tokens, batch 32, bf16, dropout 0.2):
-     K2 and K3 past their whole-row kernels' shared memory (causal 512, a
-     ragged 1,000 keys, hd = 32) against their plain versions in both
-     dtypes with and without dropout, keep masks bit for bit, and two
-     planted tiling faults (the last key tile dropped; keep bits drawn at
-     the wrong key index) against the bf16 gates; K2 and K3 at the model's
-     three attention shapes (the checks of [2], then timed as in [4]); K1
-     at one row a sample; training (every gradient through the kernels
-     against the plain versions in fp32 at N=2, then 5 timed bf16 steps at
-     N=32 after 2 warm-ups: samples/s, the step's split, peak memory,
-     launches, one profiled step); serving with early stop off (causal_cache
+     K2 and K3 past their whole-row kernels' reach (causal 512, a ragged
+     1,000 keys, hd = 32) against their plain versions in both dtypes with
+     and without dropout, keep masks bit for bit, and three planted tiling
+     faults (the first or the last key tile dropped; keep bits drawn at the
+     wrong key index) against the bf16 gates at each key-tiled kernel's
+     tile; K2 and K3 at the model's three attention shapes (the checks of
+     [2], then timed as in [4], and at 2,000 causal keys); K1 at one row
+     a sample; training (every gradient through the kernels against the
+     plain versions in fp32 at N=2, then 5 timed bf16 steps at N=32 after
+     2 warm-ups: samples/s, the step's split, peak memory, launches, K2's
+     tensor-core key-tiled kernel in every decoder self-attention, one
+     profiled step); serving with early stop off (causal_cache
      timed at N=32 with a profiled decode, reference at N=4; each engine's
      fp32 grid through the kernels equal to the plain versions', bf16 grids
      parting only at near-ties); the command line (a 350-solid
@@ -81,6 +85,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -127,12 +132,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def hgmma_count(library: str) -> int:
-    """HGMMA (wgmma) instructions in a built library's SASS."""
+def sass_counts(library: str, opcode: str) -> dict:
+    """Instructions of one opcode (HGMMA: wgmma; HMMA: mma.sync) in a built
+    library's SASS, by function (every function listed, 0 where none)."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([exe, "-sass", library], check=True, capture_output=True, text=True,
                           timeout=300).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    counts, fn, op = {}, "", re.compile(rf"\b{opcode}\b")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts.setdefault(fn, 0)
+        elif fn and op.search(line):
+            counts[fn] += 1
+    return counts
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -1559,6 +1572,9 @@ LONG_KEY_SHAPES = (("causal-512", 2, 512, 512, True, 8, 64),
 FLAT_SHAPES = (("flat-encoder", 32, 116, 116, False, 32),
                ("flat-decoder-self", 32, 512, 512, True, 8),
                ("flat-cross", 32, 512, 116, False, 8))
+# timed beside them: K2's and K3's key-tiled kernels near the JAX kernel's
+# reach (a ragged causal key side of 2,000, 4 sequences of 8 heads)
+LONG_TIMED = ("long-keys-2000", 4, 2000, 2000, True, 4)
 
 
 def long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd):
@@ -1587,6 +1603,11 @@ def tiling_faults(tile, sk, causal):
 
     last = (sk - 1) // tile * tile
 
+    def first_tile_dropped(a):
+        bias = a["bias"].clone()
+        bias[:, :tile] = float(np.finfo(np.float32).min)
+        return {**a, "bias": bias}, None
+
     def last_tile_dropped(a):
         bias = a["bias"].clone()
         bias[:, last:] = float(np.finfo(np.float32).min)
@@ -1608,7 +1629,8 @@ def tiling_faults(tile, sk, causal):
 
         return {**a, "k": roll(a["k"]), "v": roll(a["v"]), "bias": roll(a["bias"])}, unroll
 
-    faults = [("last key tile dropped", 0.0, last_tile_dropped)]
+    faults = [("first key tile dropped", 0.0, first_tile_dropped),
+              ("last key tile dropped", 0.0, last_tile_dropped)]
     if not causal:
         faults.append(("keep bits at the wrong key index", TRAIN_RATE, keep_bits_shifted))
     return faults
@@ -1803,6 +1825,10 @@ def run_flat_training(model, cfg, batch, seed):
     launches = dict(ops.LAUNCHES)
     expect_launches(f"flat, {steps} bf16 steps, dropout {mc.dropout}", steps * per_step,
                     steps * per_step)
+    if launches["flash_fwd_tiled_tc"] != steps * mc.num_decoder_layers:
+        fail(f"flat train bf16: {launches['flash_fwd_tiled_tc']} launches of K2's tensor-core "
+             f"key-tiled kernel, the decoder self-attention implies "
+             f"{steps * mc.num_decoder_layers}")
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
@@ -2189,16 +2215,20 @@ def run_flat_phase(seed, rng, dev):
         e_fwd, e_bwd = check_long_keys(rng, dev, label, n, sq, sk, causal, heads, dim)
         err["flash_fwd"], err["flash_bwd"] = max(err["flash_fwd"], e_fwd), max(err["flash_bwd"],
                                                                               e_bwd)
+        if dim == 64:  # bf16 on the tensor-core key-tiled kernel
+            err["flash_fwd_tiled_tc"] = max(err["flash_fwd_tiled_tc"], e_fwd)
     for label, n_full, sq, sk, causal, n_plain in FLAT_SHAPES:
         e_fwd, e_bwd = check_flash_train(rng, dev, label, n_full, sq, sk, causal, n_plain, h, hd)
         err["flash_fwd"], err["flash_bwd"] = max(err["flash_fwd"], e_fwd), max(err["flash_bwd"],
                                                                               e_bwd)
+        if sk > 256:
+            err["flash_fwd_tiled_tc"] = max(err["flash_fwd_tiled_tc"], e_fwd)
     err["pointer_argmax"] = check_pointer(rng, dev, cfg.batch_size_train, 1, s, mc.num_model)
     rows = {"pointer_argmax": {"flat-step": time_pointer_one_row(rng, dev, cfg.batch_size_train,
                                                                  s, mc.num_model)},
             "flash_fwd": {}, "flash_bwd": {}}
     flash_lib, k3_lib = flash_libraries()
-    for label, n, sq, sk, causal, _ in FLAT_SHAPES:
+    for label, n, sq, sk, causal, _ in FLAT_SHAPES + (LONG_TIMED,):
         inputs = train_attention_inputs(rng, dev, torch.bfloat16, label, n, sq, sk, h, hd)
         rows["flash_fwd"][label], rows["flash_bwd"][label] = time_flash_call(
             label, *inputs, causal, flash_lib, k3_lib)
@@ -2277,11 +2307,19 @@ def main() -> int:
                     kernel = line.split("'")[1]
                 elif "registers" in line or "spill" in line or "Performance Loss" in line:
                     print(f"[1] ptxas {name} {kernel}: {line.strip()}", flush=True)
-    hgmma = hgmma_count(_build.lib_path("decode_step"))
+    hgmma = sum(sass_counts(_build.lib_path("decode_step"), "HGMMA").values())
     print(f"[1] cuobjdump -sass libdecode_step.so: {hgmma} HGMMA instructions (K4's GEMM on "
           f"wgmma)", flush=True)
     if not hgmma:
         fail("K4's GEMM holds no wgmma (HGMMA) instruction")
+    tiled_tc = {fn: c for fn, c in sass_counts(_build.lib_path("flash"), "HMMA").items()
+                if "attention_tiled_tc_kernel" in fn}
+    for fn, c in tiled_tc.items():
+        print(f"[1] cuobjdump -sass libflash.so: {c} HMMA instructions in {fn} (K2's "
+              f"tensor-core key-tiled kernel on mma.sync)", flush=True)
+    if len(tiled_tc) != 2 or not all(tiled_tc.values()):
+        fail("K2's tensor-core key-tiled kernel: not both instantiations hold HMMA "
+             f"instructions ({tiled_tc})")
 
     cfg = load_config("configs/ours.yml")
     mc = cfg.model
@@ -2446,7 +2484,18 @@ def main() -> int:
     for k, v in flat_launches.items():
         total[k] += v
     for k, v in flat_err.items():
-        err[k] = max(err[k], v)
+        err[k] = max(err.get(k, 0.0), v)
+    # K2's tensor-core key-tiled kernel, timed at the flat decoder
+    # self-attention (its other shapes ride along)
+    row = flat_rows["flash_fwd"]["flat-decoder-self"]
+    timings.append(("flash_fwd_tiled_tc", "faceformer_tpu_torch/csrc/attention_tiled_tc.cuh",
+                    "faceformer_tpu/ops/flash.py:252", row["ms"], row["plain_ms"],
+                    row["library_ms"], row["bound_ms"], row["bound_by"]))
+    if not total["flash_fwd_tiled_tc"]:
+        fail("K2's tensor-core key-tiled kernel was not launched on the flat main paths")
+    print(f"[6] flash_fwd_tiled_tc: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}); launches {total['flash_fwd_tiled_tc']}", flush=True)
 
     # phase 7
     summary = {"kernels": [
@@ -2461,6 +2510,8 @@ def main() -> int:
     summary["kernels"][2]["shapes"] = {**k3_rows, **flat_rows["flash_bwd"]}
     summary["kernels"][3]["gemm_phase"] = gemm_phase
     summary["kernels"][3]["pointer_phase"] = pointer_phase
+    summary["kernels"][4]["shapes"] = {label: flat_rows["flash_fwd"][label]
+                                       for label in ("flat-decoder-self", LONG_TIMED[0])}
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,25 +35,31 @@
 // output leaves through shared memory as 16-byte stores. Blocks: the
 // card's resident count, so one wave covers the call.
 //
-// Long key sides. A key side whose whole-row kernel would need more shared
-// memory than a block has (fp32 past Sk = 420 at hd = 64, bf16 past 789:
-// the flat model's decoder self-attention at label_seq_length 512, the
-// JAX kernel's reach at its 16 MB VMEM budget) runs attention_tiled_kernel
-// below instead, and only then: every shape the kernels above take keeps
-// its kernel. It stages ATT_TILE_KEYS keys at a time and walks them twice,
-// as the CUDA-core kernel walks its staged row: pass 1 finds each row's
-// max and sum of exponentials (rescaled from tile to tile), which give
-// lse; pass 2 recomputes the scores, forms p = exp(s - lse), drops it with
-// the keep bits of the GLOBAL key index, rounds it to q's dtype before the
-// product with v as flash.py:118-138 does, and accumulates p . v in
-// registers. Online rescaling of the output would round other quantities
-// than the reference does; the two passes keep its arithmetic at the price
-// of a second q . k^T. Under the causal mask the tiles past a block's last
-// row are skipped: their p is exactly 0 (as in the dk/dv kernel of
-// flash_bwd.cu). Bound: the scores' FMAs on the CUDA cores, each reading a
-// key element from shared memory; a simple kernel first.
+// Long key sides. Past the whole-row tensor-core kernel's TC_MAX_SK = 256
+// keys, bf16 at hd = 64 (the flat model's decoder self-attention at
+// label_seq_length 512, its reference engine's 512-key prefix buffer, the
+// JAX kernel's reach of ~2,000 keys at its 16 MB VMEM budget) runs
+// attention_tiled_tc_kernel (attention_tiled_tc.cuh): the whole-row
+// tensor-core forward walked over 64-key tiles, twice. Every other call
+// past 256 keys (fp32, and bf16 at other head dims; hd = 32 only where its
+// whole-row kernel does not fit, see flash_tiled), and any call whose
+// whole-row kernel would need more shared memory than a block has, runs
+// attention_tiled_kernel below: every shape up to 256 keys keeps the
+// kernel it ran before. The CUDA-core tiled kernel stages ATT_TILE_KEYS keys
+// at a time and walks them twice, as the CUDA-core kernel walks its staged
+// row: pass 1 finds each row's max and sum of exponentials (rescaled from
+// tile to tile), which give lse; pass 2 recomputes the scores, forms p =
+// exp(s - max) / sum, drops it with the keep bits of the GLOBAL key index,
+// rounds it to q's dtype before the product with v as flash.py:118-138
+// does, and accumulates p . v in registers. Online rescaling of the output
+// would round other quantities than the reference does; the two passes
+// keep its arithmetic at the price of a second q . k^T. Under the causal
+// mask the tiles past a block's last row are skipped while every row keeps
+// a live key in the tiles it visits (their p is exactly 0; as in the dk/dv
+// kernel of flash_bwd.cu). Bound: the scores' FMAs on the CUDA cores, each
+// reading a key element from shared memory; a simple kernel first.
 
-#include "attention.cuh"
+#include "attention_tiled_tc.cuh"
 
 namespace ff {
 
@@ -88,7 +94,15 @@ attention_tiled_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t E = (size_t)H * hd;
   const float* bias_n = bias + (size_t)n * Sk;
-  const int j_end = causal ? min(Sk, i0 + ATT_ROWS) : Sk;
+  // under the causal mask the tiles up to the block's last row, if a live
+  // key j <= i0 keeps every row's max finite (else a row whose keys are
+  // all masked spreads its p over every key, as the reference's does)
+  int j_end = Sk;
+  if (causal) {
+    const int probe = min(min(i0 + 1, Sk), (int)blockDim.x);
+    if (__syncthreads_or(threadIdx.x < probe && bias_n[threadIdx.x] > NEG))
+      j_end = min(Sk, i0 + ATT_ROWS);
+  }
   const int tiles = (j_end + KT - 1) / KT;
 
   for (int idx = threadIdx.x; idx < ATT_ROWS * hd; idx += blockDim.x) {
@@ -142,11 +156,9 @@ attention_tiled_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
       }
     }
   }
-  float ls[RPW];
-#pragma unroll
-  for (int t = 0; t < RPW; ++t) ls[t] = m[t] + logf(l[t]);
-
-  // pass 2: p = exp(s - lse), dropped and rounded, times v
+  // pass 2: p = exp(s - m) / l (not exp(s - lse): where every key of a row
+  // is masked, lse rounds to m and that would give 1, not 1 / Sk), dropped
+  // and rounded, times v
   float acc[RPW][DC];
 #pragma unroll
   for (int t = 0; t < RPW; ++t)
@@ -161,7 +173,7 @@ attention_tiled_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
       if (i < Sq) {
         scores(r, j0, nk);
         for (int jj = lane; jj < nk; jj += 32) {
-          float p = expf(pw[jj] - ls[t]);
+          float p = expf(pw[jj] - m[t]) / l[t];
           if constexpr (DROP) p = dropout_keep(drop, n, h, i, j0 + jj) ? p * drop.scale : 0.f;
           pw[jj] = round_to<TQ>(p);
         }
@@ -188,7 +200,7 @@ attention_tiled_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < DC; ++c)
         if (lane + 32 * c < hd) out[qoff + lane + 32 * c] = from_f<TQ>(acc[t][c]);
-      if (lane == 0) lse[((size_t)n * Sq + i) * H + h] = ls[t];
+      if (lane == 0) lse[((size_t)n * Sq + i) * H + h] = m[t] + logf(l[t]);
     }
   }
 }
@@ -219,20 +231,36 @@ inline cudaError_t launch_attention_tiled(const TQ* q, const TK* k, const TK* v,
   return cudaErrorInvalidValue;
 }
 
-// The kernel the call takes: the whole-row kernels unless their shared
-// memory exceeds a block's, then the key-tiled one. Built with
-// FF_KEY_TILES_ALWAYS (tools/time_key_tiles.py), every call takes the
-// key-tiled kernel, to time it where the whole-row kernels also apply.
+// The kernel the call takes: the whole-row kernels up to TC_MAX_SK keys
+// where they fit a block's shared memory, else a key-tiled one: the
+// tensor-core kernel for bf16 at hd = 64, the CUDA-core kernel otherwise.
+// hd = 32 keeps the whole-row kernels past TC_MAX_SK keys wherever they
+// fit: timed against them (tools/time_key_tiles.py), the CUDA-core tiled
+// kernel lost there at 512 queries against 320 keys in both dtypes (1.22 x
+// fp32, 1.55 x bf16), where at hd = 64 it won at every shape.
+// Builds for tools/time_key_tiles.py: FF_KEY_TILES_ALWAYS sends every call
+// to a key-tiled kernel; FF_WHOLE_ROWS keeps the whole-row kernels wherever
+// they fit a block (the dispatch before the tensor-core tiled kernel);
+// FF_CUDA_CORE_TILES keeps bf16 at hd = 64 off the tensor-core tiled kernel.
 inline size_t whole_row_smem_bytes(int dtype, int Sk, int hd) {
   if (dtype == FF_FLOAT32) return attention_smem_bytes<float>(Sk, hd);
   return takes_tc(Sk, hd) ? tc_smem_for<__nv_bfloat16>(Sk)
                           : attention_smem_bytes<__nv_bfloat16>(Sk, hd);
 }
 inline bool flash_tiled(int dtype, int Sk, int hd) {
-#ifdef FF_KEY_TILES_ALWAYS
+#if defined(FF_KEY_TILES_ALWAYS)
   return true;
-#else
+#elif defined(FF_WHOLE_ROWS)
   return whole_row_smem_bytes(dtype, Sk, hd) > SMEM_LIMIT;
+#else
+  return (Sk > TC_MAX_SK && hd != 32) || whole_row_smem_bytes(dtype, Sk, hd) > SMEM_LIMIT;
+#endif
+}
+inline bool tiled_on_tc(int dtype, int hd) {
+#ifdef FF_CUDA_CORE_TILES
+  return false;
+#else
+  return dtype == FF_BFLOAT16 && hd == TC_HD;
 #endif
 }
 
@@ -243,6 +271,11 @@ static int flash_fwd_impl(int dtype, const void* q, const void* k, const void* v
                           int N, int Sq, int Sk, int H, int hd, float scale, int causal,
                           ff::Dropout drop, void* out, float* l, cudaStream_t st) {
   if (ff::flash_tiled(dtype, Sk, hd)) {
+    if (ff::tiled_on_tc(dtype, hd))
+      return ff::launch_attention_tiled_tc<DROP>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), b, static_cast<__nv_bfloat16*>(out), l, N, Sq,
+          Sk, H, scale, causal, drop, st);
     if (dtype == FF_FLOAT32)
       return ff::launch_attention_tiled<float, float, DROP>(
           static_cast<const float*>(q), static_cast<const float*>(k),
@@ -284,11 +317,12 @@ FF_EXPORT int flash_fwd(int dtype, const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory of the kernel that takes (dtype, Sk, hd): the
-// tensor-core kernel's larger walk or the CUDA-core kernel's, or past a
-// block's shared memory the key-tiled kernel's (more than a block has only
-// where even one tile does not fit: hd past ATT_TILED_MAX_HD).
+// whole-row tensor-core kernel's larger walk or the CUDA-core kernel's, or
+// a key-tiled kernel's (more than a block has only where even one tile of
+// the CUDA-core kernel does not fit: hd past ATT_TILED_MAX_HD).
 FF_EXPORT size_t flash_smem_bytes(int dtype, int Sk, int hd) {
   if (!ff::flash_tiled(dtype, Sk, hd)) return ff::whole_row_smem_bytes(dtype, Sk, hd);
+  if (ff::tiled_on_tc(dtype, hd)) return ff::TT_SMEM_BYTES;
   if (hd > ff::ATT_TILED_MAX_HD) return (size_t)-1;
   return dtype == FF_FLOAT32 ? ff::attention_tiled_smem_bytes<float>(hd)
                              : ff::attention_tiled_smem_bytes<__nv_bfloat16>(hd);
@@ -297,7 +331,8 @@ FF_EXPORT size_t flash_smem_bytes(int dtype, int Sk, int hd) {
 // Keys a tile of the kernel that takes (dtype, Sk, hd); 0: the whole key
 // side is staged at once.
 FF_EXPORT int flash_key_tile(int dtype, int Sk, int hd) {
-  return ff::flash_tiled(dtype, Sk, hd) ? ff::ATT_TILE_KEYS : 0;
+  if (!ff::flash_tiled(dtype, Sk, hd)) return 0;
+  return ff::tiled_on_tc(dtype, hd) ? ff::TT_KEYS : ff::ATT_TILE_KEYS;
 }
 
 // The keep mask alone, as bytes (N, H, Sq, Sk): what both flash kernels apply

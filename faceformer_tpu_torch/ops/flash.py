@@ -8,8 +8,9 @@ kernel (``_keep_mask``). Every ``multihead_attention`` call reaches it: in
 serving the encoder's self-attention and the ``reference`` engine's decoder;
 in training also the causal decoder self-attention and the anchor-broadcast
 cross-attention, forward and backward. Kernels: csrc/flash.cu (+
-csrc/attention.cuh) and csrc/flash_bwd.cu (+ csrc/flash_bwd_tc.cuh), whose
-headers say what bounds them on the card and how their designs answer that.
+csrc/attention.cuh, csrc/attention_tiled_tc.cuh) and csrc/flash_bwd.cu (+
+csrc/flash_bwd_tc.cuh), whose headers say what bounds them on the card and
+how their designs answer that.
 
 Dropout cannot reproduce the TPU PRNG's bits. The keep mask here is
 counter-based (Philox4x32-10 keyed on the call's seed, counter = key index
@@ -31,6 +32,7 @@ from faceformer_tpu_torch.ops import _build
 
 NEG = float(np.finfo(np.float32).min)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+TILED_TC_KEYS = 64  # keys a tile of the tensor-core tiled forward (csrc/attention_tiled_tc.cuh)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -232,9 +234,10 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
     (N, Sq, H) fp32). ``dropout_rate`` > 0 drops attention probabilities
     with the keep mask of ``seed``.
 
-    CUDA tensors launch the kernel (its key-tiled form where the key side
-    does not fit a block's shared memory); CPU tensors (or impl="plain")
-    run ``flash_attention_plain``."""
+    CUDA tensors launch the kernel (a key-tiled form past 256 keys or where
+    the key side does not fit a block's shared memory: for bf16 at hd = 64
+    the tensor-core one); CPU tensors (or impl="plain") run
+    ``flash_attention_plain``."""
     _check(q, k, v, bias)
     n, sq, h, hd = q.shape
     sk = k.shape[1]
@@ -248,6 +251,7 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
         raise ValueError("flash_attention needs q, k and v on 16-byte boundaries")
     dt = _DTYPES[q.dtype]
     _check_smem("flash", "flash_smem_bytes", dt, sk, hd)
+    tiled_tc = key_tile("fwd", q.dtype, sk, hd) == TILED_TC_KEYS
     out = torch.empty_like(q)
     lse = torch.empty((n, sq, h), dtype=torch.float32, device=q.device)
     fn = _build.bind("flash", "flash_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -259,6 +263,8 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
                 _build.stream_ptr(q.device))
     _build.check("flash", status, "flash_fwd launch")
     ops.LAUNCHES["flash_fwd"] += 1
+    if tiled_tc:
+        ops.LAUNCHES["flash_fwd_tiled_tc"] += 1
     return out, lse
 
 

@@ -1,17 +1,28 @@
-"""Time K2's and K3's key-tiled CUDA-core kernels against the whole-row
-kernels at shapes both can take, on one card.
+"""Time K2's and K3's kernels against each other at shapes several of
+them can take, on one card.
 
     python -m faceformer_tpu_torch.tools.time_key_tiles
 
-A call takes a key-tiled kernel (``csrc/flash.cu::attention_tiled_kernel``,
-``csrc/flash_bwd.cu::flash_bwd_dq_tiled_kernel``) only where the whole-row
-kernel's shared memory exceeds a block's. This script builds a second copy
-of both sources with ``FF_KEY_TILES_ALWAYS``, which sends every CUDA-core
-call to the key-tiled kernel, and runs each shape through the usual build
-and through that copy: the two outputs must agree within the kernels'
-gates, and each is timed with CUDA events. bf16 and fp32, 8 heads of 64,
-batch 32, attention dropout 0.2 as in training. Prints the card, a line a
-shape and kernel, and one JSON line of every reading.
+The usual build sends a K2 call past 256 keys to a key-tiled kernel (bf16
+at hd = 64: ``csrc/attention_tiled_tc.cuh``, on the tensor cores; else
+``csrc/flash.cu::attention_tiled_kernel``; at hd = 32 only past its
+whole-row kernel's shared memory) and K3's dq to
+``csrc/flash_bwd.cu::flash_bwd_dq_tiled_kernel`` only where the whole-row
+kernel's shared memory exceeds a block's. This script builds more copies of
+the sources, each sending the calls elsewhere, and runs each shape through
+every build: the outputs must agree with the usual build's within the
+kernels' gates, and each is timed with CUDA events. The builds:
+  - key-tiled (``FF_KEY_TILES_ALWAYS``, K2 and K3): every call key-tiled;
+  - whole-row (``FF_WHOLE_ROWS``, K2): the whole-row kernels wherever they
+    fit a block, the dispatch before the tensor-core tiled kernel;
+  - CUDA-core tiled (``FF_KEY_TILES_ALWAYS`` and ``FF_CUDA_CORE_TILES``,
+    K2): every call on the CUDA-core tiled kernel;
+  - light first (``FF_KEY_TILES_ALWAYS`` and ``FF_LIGHT_FIRST``, K2): the
+    tensor-core tiled kernel launching its query tiles in order, early
+    (light, under a causal mask) tiles first, where the usual order runs
+    the late ones first.
+8 heads, batch 32, attention dropout 0.2 as in training. Prints the card,
+a line a shape and kernel, and one JSON line of every reading.
 """
 
 from __future__ import annotations
@@ -25,39 +36,53 @@ import sys
 
 from faceformer_tpu_torch.ops import _build
 
-# (label, dtype, Sq, Sk, causal): fp32 where the whole-row K2 (420 keys)
-# and dq (391) kernels hold, bf16 past the tensor cores' 256 keys, and
-# bf16 at the flat decoder's 512 keys, where only K2 has a whole-row kernel
-SHAPES = (("fp32 causal 384", "float32", 384, 384, True),
-          ("fp32 512 vs 320", "float32", 512, 320, False),
-          ("bf16 causal 384", "bfloat16", 384, 384, True),
-          ("bf16 causal 512", "bfloat16", 512, 512, True))
-N, H, HD, RATE, SEED = 32, 8, 64, 0.2, 1234
+# (label, dtype, Sq, Sk, causal, hd): at hd = 64 fp32 where the whole-row
+# K2 (420 keys) and dq (391) kernels hold, bf16 past the tensor cores' 256
+# keys, and bf16 at the flat decoder's 512 keys, where only K2 has a
+# whole-row kernel; the same at hd = 32; and bf16 up to 256 keys, where
+# the whole-row tensor-core kernel runs
+SHAPES = (("fp32 causal 384", "float32", 384, 384, True, 64),
+          ("fp32 512 vs 320", "float32", 512, 320, False, 64),
+          ("bf16 causal 384", "bfloat16", 384, 384, True, 64),
+          ("bf16 causal 512", "bfloat16", 512, 512, True, 64),
+          ("fp32 hd32 causal 384", "float32", 384, 384, True, 32),
+          ("fp32 hd32 512 vs 320", "float32", 512, 320, False, 32),
+          ("bf16 hd32 causal 384", "bfloat16", 384, 384, True, 32),
+          ("bf16 hd32 512 vs 320", "bfloat16", 512, 320, False, 32),
+          ("bf16 causal 256", "bfloat16", 256, 256, True, 64),
+          ("bf16 512 vs 220", "bfloat16", 512, 220, False, 64))
+N, H, RATE, SEED = 32, 8, 0.2, 1234
 GATES = {"float32": 1e-4, "bfloat16": 2e-2}  # max error relative to the output's largest
+# build -> (sources, nvcc defines)
+BUILDS = {"key-tiled": (("flash", "flash_bwd"), ("FF_KEY_TILES_ALWAYS",)),
+          "whole-row": (("flash",), ("FF_WHOLE_ROWS",)),
+          "CUDA-core tiled": (("flash",), ("FF_KEY_TILES_ALWAYS", "FF_CUDA_CORE_TILES")),
+          "light first": (("flash",), ("FF_KEY_TILES_ALWAYS", "FF_LIGHT_FIRST"))}
 
 
-def build_tiled() -> dict:
-    """csrc/flash.cu and csrc/flash_bwd.cu built with FF_KEY_TILES_ALWAYS,
-    both nvcc at once, loaded as the libraries ``_build`` would load."""
-    out_dir = os.path.join(_build.BUILD_DIR, "key_tiles")
-    os.makedirs(out_dir, exist_ok=True)
+def build_variants() -> dict:
+    """Every build of BUILDS, one nvcc a source and build, all at once,
+    loaded as the libraries ``_build`` would load: {build: {source: lib}}."""
     procs = {}
-    for name in ("flash", "flash_bwd"):
-        path = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-DFF_KEY_TILES_ALWAYS", "-o", path,
-               os.path.join(_build.CSRC, f"{name}.cu")]
-        procs[name] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (path, proc) in procs.items():
+    for build, (names, defines) in BUILDS.items():
+        out_dir = os.path.join(_build.BUILD_DIR, "variants", build.replace(" ", "_"))
+        os.makedirs(out_dir, exist_ok=True)
+        for name in names:
+            path = os.path.join(out_dir, f"lib{name}.so")
+            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", path,
+                   os.path.join(_build.CSRC, f"{name}.cu")]
+            procs[build, name] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                         stderr=subprocess.STDOUT, text=True))
+    libs = {build: {} for build in BUILDS}
+    for (build, name), (path, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{name}.cu with FF_KEY_TILES_ALWAYS (nvcc exit "
+            raise RuntimeError(f"{name}.cu for the {build} build (nvcc exit "
                                f"{proc.returncode}):\n{log}")
         lib = ctypes.CDLL(path)
         lib.ff_error_string.argtypes = [ctypes.c_int]
         lib.ff_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+        libs[build][name] = lib
     return libs
 
 
@@ -109,15 +134,15 @@ def main() -> int:
     print(card.strip().splitlines()[0] if card.strip() else torch.cuda.get_device_name(0),
           flush=True)
     _build.build_all(("flash", "flash_bwd"))
-    tiled = build_tiled()
+    variants = {"usual": {}, **build_variants()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     readings, ok = [], True
-    for label, dt, sq, sk, causal in SHAPES:
+    for label, dt, sq, sk, causal, hd in SHAPES:
         dtype = getattr(torch, dt)
-        q = torch.randn((N, sq, H, HD), generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn((N, sk, H, HD), generator=gen, device="cuda").to(dtype)
+        q = torch.randn((N, sq, H, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((N, sk, H, hd), generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
-        do = torch.randn((N, sq, H, HD), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((N, sq, H, hd), generator=gen, device="cuda").to(dtype)
         pad = torch.zeros((N, sk), dtype=torch.bool, device="cuda")
         pad[N // 2:, sk - sk // 8:] = True  # a ragged key side
         bias = padding_mask_bias(pad)
@@ -128,23 +153,24 @@ def main() -> int:
         for kernel, call in calls.items():
             which = "fwd" if kernel == "flash_fwd" else "bwd"
             runs = {}
-            for build, libs in (("usual", {}), ("key-tiled", tiled)):
+            for build, libs in variants.items():
+                if which == "bwd" and build != "usual" and "flash_bwd" not in libs:
+                    continue  # a K2-only build
                 with libraries(libs):
-                    runs[build] = dict(tile=key_tile(which, dtype, sk, HD), out=call(),
+                    runs[build] = dict(tile=key_tile(which, dtype, sk, hd), out=call(),
                                        ms=time_ms(call))
-            err = max(rel_err(a, b) for a, b in zip(runs["key-tiled"]["out"],
-                                                     runs["usual"]["out"]))
             row = dict(shape=label, kernel=kernel, dtype=dt, sq=sq, sk=sk, causal=causal,
-                       usual_tile=runs["usual"]["tile"], usual_ms=runs["usual"]["ms"],
-                       tiled_ms=runs["key-tiled"]["ms"], rel_err=err)
+                       hd=hd, builds={})
+            parts = []
+            for build, run in runs.items():
+                err = max(rel_err(a, b) for a, b in zip(run["out"], runs["usual"]["out"]))
+                ok &= err <= GATES[dt]
+                row["builds"][build] = dict(tile=run["tile"], ms=run["ms"], rel_err=err)
+                parts.append(f"{build} ({run['tile'] or 'whole'}) {run['ms']:.4f} ms "
+                             f"({run['ms'] / runs['usual']['ms']:.3f} x, err {err:.3g})")
             readings.append(row)
-            ok &= err <= GATES[dt]
-            usual = (f"key-tiled, {row['usual_tile']} keys a tile" if row["usual_tile"]
-                     else "whole row")
-            print(f"{kernel} {label} q({N},{sq},{H},{HD}) k({N},{sk}) dropout {RATE}: usual "
-                  f"build ({usual}) {row['usual_ms']:.4f} ms, key-tiled {row['tiled_ms']:.4f} ms "
-                  f"({row['tiled_ms'] / row['usual_ms']:.3f} x); outputs agree to {err:.3g} "
-                  f"(<= {GATES[dt]})", flush=True)
+            print(f"{kernel} {label} q({N},{sq},{H},{hd}) k({N},{sk}) dropout {RATE}: "
+                  f"{'; '.join(parts)} (gate {GATES[dt]}; tile in keys)", flush=True)
             del runs
         del q, k, v, do, bias, lse
     print(json.dumps({"key_tiles": readings}), flush=True)

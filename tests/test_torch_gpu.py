@@ -150,13 +150,17 @@ def test_flash_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal, hd):
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
 
 
-def flash_case(dev, dtype, n, sq, sk, seed=7, h=4, hd=64):
+def flash_case(dev, dtype, n, sq, sk, seed=7, h=4, hd=64, dead=0):
+    """(q, k, v, bias, do): inputs from a seeded rng and a ragged key-padding
+    bias; the last ``dead`` samples have every key padded."""
     rng = np.random.default_rng(seed)
     q, do = (torch.as_tensor(rng.standard_normal((n, sq, h, hd)), dtype=dtype, device=dev)
              for _ in range(2))
     k, v = (torch.as_tensor(rng.standard_normal((n, sk, h, hd)), dtype=dtype, device=dev)
             for _ in range(2))
     valid = torch.as_tensor(rng.integers(max(1, sk // 2), sk + 1, (n, 1)), device=dev)
+    if dead:
+        valid[n - dead:] = 0
     bias = padding_mask_bias(torch.arange(sk, device=dev)[None] >= valid)
     return q, k, v, bias, do
 
@@ -263,17 +267,29 @@ def check_flash_bwd(cuda_device, dtype, tol, rate, n, sq, sk, causal, h, hd):
         assert not torch.equal(got[2], other[2])
 
 
-# Key sides past the whole-row kernels' shared memory, which run the
-# key-tiled kernels (n, sq, sk, causal, hd): the flat model's causal decoder
-# self-attention at label_seq_length 512, a ragged non-causal 1,000 keys off
-# the 128-key tile, and at hd = 32 (where the whole-row kernels reach
-# further: K2 fp32 ~890 keys, bf16 1,411, K3 702) 1,500 causal keys and
-# 1,000 non-causal ones. (fwd, bwd) say which tiled: K2's CUDA-core kernel
-# stages 512 bf16 keys whole at hd = 64 (it holds 789).
-LONG_KEY_SHAPES = [((2, 512, 512, True, 64), {"fp32": (1, 1), "bf16": (0, 1)}),
-                   ((2, 300, 1000, False, 64), {"fp32": (1, 1), "bf16": (1, 1)}),
-                   ((1, 1500, 1500, True, 32), {"fp32": (1, 1), "bf16": (1, 1)}),
-                   ((2, 200, 1000, False, 32), {"fp32": (1, 1), "bf16": (0, 1)})]
+# Key sides past the whole-row kernels' reach, which run the key-tiled
+# kernels (n, sq, sk, causal, hd, samples whose keys are all padded): the
+# flat model's causal decoder self-attention at label_seq_length 512, a
+# ragged non-causal 1,000 keys off the 128-key tile, and at hd = 32 1,500
+# causal keys and 1,000 non-causal ones; then one key past the whole-row
+# tensor-core kernel's 256 (a ragged last 64-key tile), 320 non-causal
+# keys, the reference engine's prefixes (1 and 37 queries against 512
+# keys), the JAX kernel's reach (2,000 causal keys) and a sample whose keys
+# are all padded. (fwd, bwd) say which tiled: every K2 call past 256 keys
+# at hd = 64 (bf16 on the tensor-core tiled kernel), at hd = 32 past its
+# whole-row kernels' shared memory (fp32 ~890 keys, bf16 1,411); K3's dq
+# past its shared memory (391 keys at hd = 64 in both dtypes, 702 at hd =
+# 32).
+LONG_KEY_SHAPES = [((2, 512, 512, True, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((2, 300, 1000, False, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((1, 1500, 1500, True, 32, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((2, 200, 1000, False, 32, 0), {"fp32": (1, 1), "bf16": (0, 1)}),
+                   ((2, 257, 257, True, 64, 0), {"fp32": (1, 0), "bf16": (1, 0)}),
+                   ((2, 300, 320, False, 64, 0), {"fp32": (1, 0), "bf16": (1, 0)}),
+                   ((4, 1, 512, False, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((4, 37, 512, False, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((1, 2000, 2000, True, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
+                   ((3, 100, 384, False, 64, 1), {"fp32": (1, 0), "bf16": (1, 0)})]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -281,17 +297,19 @@ LONG_KEY_SHAPES = [((2, 512, 512, True, 64), {"fp32": (1, 1), "bf16": (0, 1)}),
                          [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 3e-2)])
 @pytest.mark.parametrize("shape,tiled", LONG_KEY_SHAPES,
                          ids=[f"{s[0]}x{s[1]}x{s[2]}-{'causal' if s[3] else 'full'}-hd{s[4]}"
-                              for s, _ in LONG_KEY_SHAPES])
+                              + (f"-dead{s[5]}" if s[5] else "") for s, _ in LONG_KEY_SHAPES])
 def test_flash_long_keys_on_card(cuda_device, dtype, tol_fwd, tol_bwd, rate, shape, tiled):
-    """K2 and K3 past the whole-row kernels' shared memory against their
-    plain versions, the keep mask the forward applied read back through a
-    one-hot v (bit for bit), and both bitwise repeatable."""
-    n, sq, sk, causal, hd = shape
+    """K2 and K3 past the whole-row kernels' reach against their plain
+    versions, the keep mask the forward applied read back through a one-hot
+    v (bit for bit), and both bitwise repeatable."""
+    n, sq, sk, causal, hd, dead = shape
     h = 2
     key = "fp32" if dtype == torch.float32 else "bf16"
     assert (bool(key_tile("fwd", dtype, sk, hd)), bool(key_tile("bwd", dtype, sk, hd))) == \
         tuple(map(bool, tiled[key]))
-    q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=h, hd=hd)
+    if key == "bf16" and hd == 64:
+        assert key_tile("fwd", dtype, sk, hd) == 64  # the tensor-core tiled kernel
+    q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=h, hd=hd, dead=dead)
     kw = dict(causal=causal, dropout_rate=rate, seed=21)
     out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, **kw)
     out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
@@ -320,6 +338,25 @@ def test_flash_long_keys_on_card(cuda_device, dtype, tol_fwd, tol_bwd, rate, sha
         assert rel_err(a, b) <= tol_bwd, (name, rel_err(a, b))
     again = flash_attention_bwd(q, k, v, bias, lse_p, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd,sk", [(64, 300), (32, 1500)])
+def test_flash_fwd_masked_rows_causal_on_card(cuda_device, dtype, tol, rate, hd, sk):
+    """K2's key-tiled kernels under the causal mask where rows have every
+    key masked: a sample whose keys are all padded, and one whose first 70
+    keys are, so its first 70 rows see no live key. Such a row spreads p
+    over all its keys, as the plain version's does, though the tiles past
+    the diagonal are skipped for the other rows."""
+    q, k, v, bias, _ = flash_case(cuda_device, dtype, 3, 300, sk, h=2, hd=hd, dead=1)
+    bias[0, :70] = NEG
+    kw = dict(causal=True, dropout_rate=rate, seed=5)
+    assert key_tile("fwd", dtype, sk, hd)
+    out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, **kw)
+    out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
+    assert float((out.float() - out_p.float()).abs().max()) <= tol
+    assert float((lse - lse_p).abs().max()) <= tol
 
 
 def decode_state(dev, dtype, n=3, step=5, seed=2, cfg=CFG):
