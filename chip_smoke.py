@@ -8,7 +8,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
      with ptxas's register / shared-memory / spill lines, the count of
      wgmma (HGMMA) instructions in the fused decode step's library and of
      mma.sync (HMMA) instructions in each instantiation of K2's tensor-core
-     key-tiled kernel;
+     key-tiled kernel and of K3's tensor-core key-tiled dq kernel;
   2. kernels against their plain PyTorch versions at the full `ours` width
      (configs/ours.yml: d=512, 8 heads, FFN 1024, 6+6 layers, L=216, T=37),
      in fp32 and bf16: the serving kernels at batch N=20, K4's bf16 gates
@@ -37,7 +37,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
   4. per-kernel timing at the main paths' shapes (K2 at each of its five:
      the serving encoder, the reference engine's decoder, and the three
      training calls): kernel, plain version, one-call library yardstick, and
-     the card's lower bound; and K4's GEMM phase alone (the 49 products of
+     the card's lower bound, K3 there held once more to its bf16 gates;
+     and K4's GEMM phase alone (the 49 products of
      one step, each kind held against its plain version) beside addmm;
   5. the command line at the `ours` width of configs/synthetic-big.yml
      (batch 32, bf16, remat, causal_cache validation), each run in a
@@ -56,22 +57,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
      (d=512, 8 heads, FFN 1024, 6+6 layers, S=116 memory rows,
      label_seq_length 512, direction tokens, batch 32, bf16, dropout 0.2):
      K2 and K3 past their whole-row kernels' reach (causal 512, a ragged
-     1,000 keys, hd = 32) against their plain versions in both dtypes with
-     and without dropout, keep masks bit for bit, and three planted tiling
-     faults (the first or the last key tile dropped; keep bits drawn at the
-     wrong key index) against the bf16 gates at each key-tiled kernel's
-     tile; K2 and K3 at the model's three attention shapes (the checks of
-     [2], then timed as in [4], and at 2,000 causal keys); K1 at one row
-     a sample; training (every gradient through the kernels against the
+     1,000 keys, causal 600 with rows that see no live key, hd = 32)
+     against their plain versions in both dtypes with and without dropout,
+     keep masks bit for bit, another seed moving K3's dv, and planted
+     tiling faults (the first or the last key tile dropped; keep bits drawn
+     at the wrong key index) against the bf16 gates at each key-tiled
+     kernel's tile (K3 on the dead rows' shape judged sample by sample);
+     K2 and K3 at the model's three
+     attention shapes (the checks of [2], then timed as in [4], and at
+     2,000 causal keys, K3 there held to its bf16 gates); K1 at one row a
+     sample; training (every gradient through the kernels against the
      plain versions in fp32 at N=2, then 5 timed bf16 steps at N=32 after
      2 warm-ups: samples/s, the step's split, peak memory, launches, K2's
-     tensor-core key-tiled kernel in every decoder self-attention, one
-     profiled step); serving with early stop off (causal_cache
-     timed at N=32 with a profiled decode, reference at N=4; each engine's
-     fp32 grid through the kernels equal to the plain versions', bf16 grids
-     parting only at near-ties); the command line (a 350-solid
-     direction-token corpus, one epoch of fit with validation and a
-     checkpoint, test with causal_cache, predict on four wireframes);
+     and K3's tensor-core key-tiled kernels in every decoder
+     self-attention, one profiled step); serving with early stop off
+     (causal_cache timed at N=32 with a profiled decode, reference at N=4;
+     each engine's fp32 grid through the kernels equal to the plain
+     versions', bf16 grids parting only at near-ties); the command line
+     (a 350-solid direction-token corpus, one epoch of fit with validation
+     and a checkpoint, test with causal_cache, predict on four wireframes);
   7. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
@@ -557,7 +561,9 @@ def time_flash_call(label, q, k, v, do, bias, causal, flash_lib, k3_lib):
     """K3 (and K2 with dropout) at one training shape, bf16, dropout on:
     kernel, plain version, the library's one-call yardstick (its forward
     with the same mask and dropout; ``autograd.grad`` through it) and the
-    card's bound. Returns (K2's row, K3's row)."""
+    card's bound; K3 held to its bf16 gates against the plain version,
+    bitwise repeatable, its dv moved by another seed. Returns (K2's row,
+    K3's row)."""
     import torch
     from faceformer_tpu_torch.ops.flash import flash_attention_bwd, flash_attention_fwd
 
@@ -567,6 +573,19 @@ def time_flash_call(label, q, k, v, do, bias, causal, flash_lib, k3_lib):
     sk = k.shape[1]
     kw = dict(causal=causal, dropout_rate=TRAIN_RATE, seed=1234)
     lse = flash_attention_fwd(q, k, v, bias, **kw)[1]
+    got = flash_attention_bwd(q, k, v, bias, lse, do, **kw)
+    caught, e_max, e_mean = k3_rejects(got, flash_attention_bwd(q, k, v, bias, lse, do,
+                                                                impl="plain", **kw))
+    repeat = all(torch.equal(a, b)
+                 for a, b in zip(got, flash_attention_bwd(q, k, v, bias, lse, do, **kw)))
+    moved = not torch.equal(got[2], flash_attention_bwd(q, k, v, bias, lse, do,
+                                                        **{**kw, "seed": 1235})[2])
+    print(f"[4] flash_bwd {label} bf16 dropout {TRAIN_RATE}: relative err max {e_max:.3g} mean "
+          f"{e_mean:.3g} (<= {K3_BF16_MAX}, {K3_BF16_MEAN}); repeat bitwise equal {repeat}; "
+          f"another seed moves dv {moved}", flush=True)
+    if caught or not repeat or not moved:
+        fail(f"K3 {label} bf16: beyond the gates, not repeatable or blind to the seed")
+    del got
     fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, **kw), iters=5)
     fwd0_ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias, causal=causal), iters=5)
     fwd_plain = time_ms(lambda: flash_attention_fwd(q, k, v, bias, impl="plain", **kw),
@@ -1561,12 +1580,15 @@ FLAT_CONFIG = os.path.join(REPO, "configs", "synthetic-dirtok-big.yml")
 FLAT_NUM, FLAT_SPLIT = 350, (325, 7, 18)
 FLAT_GEN = ("--num", str(FLAT_NUM), "--seed", "3", "--profile", "rich", "--direction_token",
             "--max_edges", "110", "--max_faces", "42", "--max_label_len", "508")
-# K2 and K3 past their whole-row kernels' shared memory (label, n, sq, sk,
-# causal, heads, hd): the flat decoder self-attention's length, a ragged
-# 1,000 keys off the 128-key tile, and hd = 32 (d = 256 over 8 heads)
-LONG_KEY_SHAPES = (("causal-512", 2, 512, 512, True, 8, 64),
-                   ("ragged-1000", 2, 300, 1000, False, 8, 64),
-                   ("hd32-causal-1500", 1, 1500, 1500, True, 8, 32))
+# K2 and K3 past their whole-row kernels' reach (label, n, sq, sk, causal,
+# heads, hd, dead): the flat decoder self-attention's length, a ragged
+# 1,000 keys off the 128-key tile, a causal 600 whose rows 0-69 of sample
+# 1 and every row of sample 2 see no live key (long_key_inputs), and hd =
+# 32 (d = 256 over 8 heads)
+LONG_KEY_SHAPES = (("causal-512", 2, 512, 512, True, 8, 64, 0),
+                   ("ragged-1000", 2, 300, 1000, False, 8, 64, 0),
+                   ("causal-dead-600", 3, 600, 600, True, 8, 64, 70),
+                   ("hd32-causal-1500", 1, 1500, 1500, True, 8, 32, 0))
 # the three attention calls of the flat model's training step at N = 32
 # (label, sequences, Sq, Sk, causal, sequences the plain side is run at)
 FLAT_SHAPES = (("flat-encoder", 32, 116, 116, False, 32),
@@ -1577,9 +1599,11 @@ FLAT_SHAPES = (("flat-encoder", 32, 116, 116, False, 32),
 LONG_TIMED = ("long-keys-2000", 4, 2000, 2000, True, 4)
 
 
-def long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd):
+def long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd, dead=0):
     """q, k, v, do and a key-padding bias: sample 0 has every key, the
-    others lose up to a quarter at the end."""
+    others lose up to a quarter at the end. With ``dead`` (n >= 3) sample
+    1 also loses its first ``dead`` keys, so its rows before them see no
+    live key under the causal mask, and the last sample loses every key."""
     import torch
     from faceformer_tpu_torch.ops.flash import padding_mask_bias
 
@@ -1591,6 +1615,9 @@ def long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd):
     valid = rng.integers(sk - sk // 4, sk + 1, size=n)
     valid[0] = sk
     mask = torch.as_tensor(np.arange(sk)[None, :] >= valid[:, None], device=dev)
+    if dead:
+        mask[1, :dead] = True
+        mask[-1] = True
     return (randn(n, sq, h, hd), randn(n, sk, h, hd), randn(n, sk, h, hd), randn(n, sq, h, hd),
             padding_mask_bias(mask.contiguous()))
 
@@ -1599,8 +1626,6 @@ def tiling_faults(tile, sk, causal):
     """Faults of a key-tiled kernel the gates must reject, made by editing
     what the kernel is given while the plain version keeps the truth:
     (label, dropout rate, edit(args) -> (args, fix(*outputs) or None))."""
-    import torch
-
     last = (sk - 1) // tile * tile
 
     def first_tile_dropped(a):
@@ -1636,19 +1661,34 @@ def tiling_faults(tile, sk, causal):
     return faults
 
 
-def k3_rejects(got, want):
+def k3_errors(got, want, per_sample=False):
+    """K3's (largest, mean relative, largest absolute) error over dq, dk
+    and dv: each tensor judged whole, or with ``per_sample`` each sample of
+    each judged on its own, so that a sample whose rows see no live key
+    (gradients in the thousands, p = 1 at every key) does not set the
+    scale that judges the others (a few units)."""
+    pairs = zip(got, want)
+    if per_sample:
+        pairs = [(a[i], b[i]) for a, b in pairs for i in range(a.shape[0])]
+    errs = [rel_errors(a, b) for a, b in pairs]
+    return tuple(max(e[i] for e in errs) for i in range(3))
+
+
+def k3_rejects(got, want, per_sample=False):
     """(rejected by the bf16 gates, largest and mean relative error)."""
-    errs = [rel_errors(a, b) for a, b in zip(got, want)]
-    e_max, e_mean = max(e[0] for e in errs), max(e[1] for e in errs)
-    return e_max > K3_BF16_MAX or e_mean > K3_BF16_MEAN, e_max, e_mean
+    e_max, e_mean, _ = k3_errors(got, want, per_sample)
+    return not (e_max <= K3_BF16_MAX and e_mean <= K3_BF16_MEAN), e_max, e_mean
 
 
-def check_long_keys(rng, dev, label, n, sq, sk, causal, h, hd):
+def check_long_keys(rng, dev, label, n, sq, sk, causal, h, hd, dead=0):
     """K2 and K3 past the whole-row kernels' reach against their plain
     versions, fp32 and bf16, dropout 0 and TRAIN_RATE: the gates of [2],
-    the keep mask the forward applied bit for bit, bitwise repeatable; in
-    bf16 the tiling faults against the gates. Returns the largest bf16
-    absolute errors (forward, backward)."""
+    the keep mask the forward applied bit for bit, bitwise repeatable,
+    another seed moving K3's dv; in bf16 the tiling faults against the
+    gates. With ``dead`` K3 is judged sample by sample (k3_errors).
+    Returns the largest bf16 absolute errors (forward, backward; the
+    backward's 0 with ``dead``, whose gradients near 4,000 would hide every
+    other shape's)."""
     import torch
     from faceformer_tpu_torch.ops.flash import (flash_attention_bwd, flash_attention_fwd,
                                                 key_tile, philox_keep_mask)
@@ -1660,7 +1700,7 @@ def check_long_keys(rng, dev, label, n, sq, sk, causal, h, hd):
         tiles = (key_tile("fwd", dtype, sk, hd), key_tile("bwd", dtype, sk, hd))
         shape = (f"{label} q({n},{sq},{h},{hd}) k({n},{sk}) causal={causal} {dtype} "
                  f"(key tiles: K2 {tiles[0] or 'whole'}, K3 dq {tiles[1] or 'whole'})")
-        q, k, v, do, bias = long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd)
+        q, k, v, do, bias = long_key_inputs(rng, dev, dtype, n, sq, sk, h, hd, dead)
         for rate in (0.0, TRAIN_RATE):
             kw = dict(causal=causal, dropout_rate=rate, seed=seed)
             out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, **kw)
@@ -1680,26 +1720,28 @@ def check_long_keys(rng, dev, label, n, sq, sk, causal, h, hd):
             want = flash_attention_bwd(**args, impl="plain")
             repeat = flash_attention_bwd(**args)
             torch.cuda.synchronize()
-            errs = [rel_errors(a, b) for a, b in zip(got, want)]
-            e_max, e_mean = max(e[0] for e in errs), max(e[1] for e in errs)
+            e_max, e_mean, e_abs = k3_errors(got, want, per_sample=bool(dead))
             equal = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
                      and all(torch.equal(a, b) for a, b in zip(got, repeat)))
             print(f"[6] long keys {shape} dropout {rate}: K2 out err {e_out:.3g} lse err "
                   f"{e_lse:.3g} (<= {tol}); keep-mask entries off the plain mask {wrong}; K3 "
-                  f"relative err max {e_max:.3g} mean {e_mean:.3g} (<= "
-                  f"{K3_BF16_MAX if bf16 else 1e-4}); repeats bitwise equal {equal}", flush=True)
+                  f"{'per-sample ' if dead else ''}relative err max {e_max:.3g} mean "
+                  f"{e_mean:.3g} (<= {K3_BF16_MAX if bf16 else 1e-4}); repeats bitwise equal "
+                  f"{equal}", flush=True)
             if not (e_out <= tol and e_lse <= tol):
                 fail(f"K2 long keys {label} {dtype} dropout {rate}: beyond {tol}")
             if wrong:
                 fail(f"K2 long keys {label} {dtype}: the kernel's keep mask is not the plain one")
-            if bf16 and (e_max > K3_BF16_MAX or e_mean > K3_BF16_MEAN) or (
-                    not bf16 and e_max > 1e-4):
+            if bf16 and not (e_max <= K3_BF16_MAX and e_mean <= K3_BF16_MEAN) or (
+                    not bf16 and not e_max <= 1e-4):
                 fail(f"K3 long keys {label} {dtype} dropout {rate}: beyond the gates")
             if not equal or not all(torch.isfinite(g.float()).all() for g in got):
                 fail(f"K2/K3 long keys {label} {dtype}: not repeatable or not finite")
+            if rate and torch.equal(flash_attention_bwd(**{**args, "seed": seed + 1})[2], got[2]):
+                fail(f"K3 long keys {label} {dtype}: another seed gave the same dv")
             if bf16:
                 worst_fwd = max(worst_fwd, e_out, e_lse)
-                worst_bwd = max(worst_bwd, max(e[2] for e in errs))
+                worst_bwd = worst_bwd if dead else max(worst_bwd, e_abs)
             del out, lse, out_p, lse_p, again, got, want, repeat
         for kernel, tile in (("K2", tiles[0]), ("K3", tiles[1])):
             if not (bf16 and tile):
@@ -1720,7 +1762,7 @@ def check_long_keys(rng, dev, label, n, sq, sk, causal, h, hd):
                     edited, fix = edit(args)
                     got = flash_attention_bwd(**edited)
                     got = fix(*got) if fix else got
-                    caught, e_max, e_mean = k3_rejects(got, want)
+                    caught, e_max, e_mean = k3_rejects(got, want, per_sample=bool(dead))
                     line = f"relative err max {e_max:.3g} mean {e_mean:.3g}"
                 print(f"[6] {kernel} bf16 tiling fault '{name}' {label} (tile {tile} keys) "
                       f"dropout {rate}: {line}; "
@@ -1825,10 +1867,11 @@ def run_flat_training(model, cfg, batch, seed):
     launches = dict(ops.LAUNCHES)
     expect_launches(f"flat, {steps} bf16 steps, dropout {mc.dropout}", steps * per_step,
                     steps * per_step)
-    if launches["flash_fwd_tiled_tc"] != steps * mc.num_decoder_layers:
-        fail(f"flat train bf16: {launches['flash_fwd_tiled_tc']} launches of K2's tensor-core "
-             f"key-tiled kernel, the decoder self-attention implies "
-             f"{steps * mc.num_decoder_layers}")
+    for name, kernel in (("flash_fwd_tiled_tc", "K2's tensor-core key-tiled kernel"),
+                         ("flash_bwd_tiled_tc", "K3's tensor-core key-tiled pair")):
+        if launches[name] != steps * mc.num_decoder_layers:
+            fail(f"flat train bf16: {launches[name]} launches of {kernel}, the decoder "
+                 f"self-attention implies {steps * mc.num_decoder_layers}")
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
@@ -2211,18 +2254,20 @@ def run_flat_phase(seed, rng, dev):
           f"{cfg.trainer.precision}, dropout {mc.dropout}, lr {cfg.trainer.lr}, decode "
           f"{cfg.decode.mode}", flush=True)
     err = collections.defaultdict(float)
-    for label, n, sq, sk, causal, heads, dim in LONG_KEY_SHAPES:
-        e_fwd, e_bwd = check_long_keys(rng, dev, label, n, sq, sk, causal, heads, dim)
+    for label, n, sq, sk, causal, heads, dim, dead in LONG_KEY_SHAPES:
+        e_fwd, e_bwd = check_long_keys(rng, dev, label, n, sq, sk, causal, heads, dim, dead)
         err["flash_fwd"], err["flash_bwd"] = max(err["flash_fwd"], e_fwd), max(err["flash_bwd"],
                                                                               e_bwd)
-        if dim == 64:  # bf16 on the tensor-core key-tiled kernel
+        if dim == 64:  # bf16 on the tensor-core key-tiled kernels
             err["flash_fwd_tiled_tc"] = max(err["flash_fwd_tiled_tc"], e_fwd)
+            err["flash_bwd_tiled_tc"] = max(err["flash_bwd_tiled_tc"], e_bwd)
     for label, n_full, sq, sk, causal, n_plain in FLAT_SHAPES:
         e_fwd, e_bwd = check_flash_train(rng, dev, label, n_full, sq, sk, causal, n_plain, h, hd)
         err["flash_fwd"], err["flash_bwd"] = max(err["flash_fwd"], e_fwd), max(err["flash_bwd"],
                                                                               e_bwd)
         if sk > 256:
             err["flash_fwd_tiled_tc"] = max(err["flash_fwd_tiled_tc"], e_fwd)
+            err["flash_bwd_tiled_tc"] = max(err["flash_bwd_tiled_tc"], e_bwd)
     err["pointer_argmax"] = check_pointer(rng, dev, cfg.batch_size_train, 1, s, mc.num_model)
     rows = {"pointer_argmax": {"flat-step": time_pointer_one_row(rng, dev, cfg.batch_size_train,
                                                                  s, mc.num_model)},
@@ -2320,6 +2365,14 @@ def main() -> int:
     if len(tiled_tc) != 2 or not all(tiled_tc.values()):
         fail("K2's tensor-core key-tiled kernel: not both instantiations hold HMMA "
              f"instructions ({tiled_tc})")
+    bwd_tiled = {fn: c for fn, c in sass_counts(_build.lib_path("flash_bwd"), "HMMA").items()
+                 if "flash_bwd_dq_tiled_tc_kernel" in fn}
+    for fn, c in bwd_tiled.items():
+        print(f"[1] cuobjdump -sass libflash_bwd.so: {c} HMMA instructions in {fn} (K3's "
+              f"tensor-core key-tiled dq kernel on mma.sync)", flush=True)
+    if len(bwd_tiled) != 2 or not all(bwd_tiled.values()):
+        fail("K3's tensor-core key-tiled dq kernel: not both instantiations hold HMMA "
+             f"instructions ({bwd_tiled})")
 
     cfg = load_config("configs/ours.yml")
     mc = cfg.model
@@ -2496,6 +2549,16 @@ def main() -> int:
     print(f"[6] flash_fwd_tiled_tc: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
           f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
           f"({row['bound_by']}); launches {total['flash_fwd_tiled_tc']}", flush=True)
+    # K3's tensor-core key-tiled pair, timed alike
+    row = flat_rows["flash_bwd"]["flat-decoder-self"]
+    timings.append(("flash_bwd_tiled_tc", "faceformer_tpu_torch/csrc/flash_bwd_tiled_tc.cuh",
+                    "faceformer_tpu/ops/flash.py:293", row["ms"], row["plain_ms"],
+                    row["library_ms"], row["bound_ms"], row["bound_by"]))
+    if not total["flash_bwd_tiled_tc"]:
+        fail("K3's tensor-core key-tiled pair was not launched on the flat main paths")
+    print(f"[6] flash_bwd_tiled_tc: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}); launches {total['flash_bwd_tiled_tc']}", flush=True)
 
     # phase 7
     summary = {"kernels": [
@@ -2511,6 +2574,8 @@ def main() -> int:
     summary["kernels"][3]["gemm_phase"] = gemm_phase
     summary["kernels"][3]["pointer_phase"] = pointer_phase
     summary["kernels"][4]["shapes"] = {label: flat_rows["flash_fwd"][label]
+                                       for label in ("flat-decoder-self", LONG_TIMED[0])}
+    summary["kernels"][5]["shapes"] = {label: flat_rows["flash_bwd"][label]
                                        for label in ("flat-decoder-self", LONG_TIMED[0])}
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)

@@ -36,19 +36,25 @@
 //      hold in the whole-row kernel (tiles are a multiple of 32) and every
 //      sum runs in the same order, so the two agree bit for bit where both
 //      apply (non-degenerate rows; the causal tiles past a block's rows,
-//      whose p is exactly 0, are skipped).
+//      whose p is exactly 0, are skipped under causal_skips).
 //   2. dk, dv: a block is stationary over a tile of keys and walks every
 //      query row in a fixed order, reading delta; the accumulators stay in
 //      registers.
 // Both recompute s and dp. fp32 inputs (and head dims other than 64) run
 // the CUDA-core kernels, everything in fp32 after the loads as the Pallas
-// kernel. bf16 at hd = 64 and Sk <= 256 runs the mma.sync kernels of
-// flash_bwd_tc.cuh (ring, key tiling and splits are described there): s
-// and dp accumulate in fp32 from bf16 fragments, the softmax algebra is
-// fp32, and ds, p_used are rounded to bf16 for the three products that
-// follow, where the Pallas kernel keeps fp32.
+// kernel. bf16 at hd = 64 runs on mma.sync: up to Sk = 256 the whole-row
+// kernels of flash_bwd_tc.cuh (ring, key tiling and splits are described
+// there), past it the key-tiled dq of flash_bwd_tiled_tc.cuh with
+// flash_bwd_tc.cuh's dk/dv kernel. s and dp accumulate in fp32 from bf16
+// fragments, the softmax algebra is fp32, and ds, p_used are rounded to
+// bf16 for the three products that follow, where the Pallas kernel keeps
+// fp32.
+//
+// Under the causal mask every kernel skips the tiles whose p is exactly 0
+// only where every row sees a live key (causal_skips, flash_bwd_tc.cuh): a
+// row whose keys up to its own are all masked has p = 1 at every key.
 
-#include "common.cuh"
+#include "flash_bwd_tiled_tc.cuh"
 
 namespace ff {
 
@@ -172,7 +178,7 @@ flash_bwd_dq_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = blockIdx.x / H, h = blockIdx.x % H, i0 = blockIdx.y * BWD_ROWS;
   const size_t E = (size_t)H * hd;
   const float* bias_n = bias + (size_t)n * Sk;
-  const int j_end = causal ? min(Sk, i0 + BWD_ROWS) : Sk;
+  const int j_end = causal_skips(causal, bias, n, Sk) ? min(Sk, i0 + BWD_ROWS) : Sk;
   const int tiles = (j_end + KT - 1) / KT;
 
   for (int idx = threadIdx.x; idx < BWD_ROWS * hd; idx += blockDim.x) {
@@ -356,9 +362,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int r = 0; r < KV_ACC; ++r) acc_k[r] = acc_v[r] = 0.f;
 
-  // under the causal mask the rows before the tile's first key see none of
-  // its keys: their p is exactly 0
-  const int i_begin = causal ? (j0 / KV_QROWS) * KV_QROWS : 0;
+  // under the causal mask the rows before the tile's first key see none
+  // of its keys, their p exactly 0, unless a row sees no live key (the
+  // bias is read only where there are rows to skip)
+  const int i_begin =
+      j0 >= KV_QROWS && causal_skips(causal, bias, n, Sk) ? (j0 / KV_QROWS) * KV_QROWS : 0;
   for (int i0 = i_begin; i0 < Sq; i0 += KV_QROWS) {
     __syncthreads();  // the previous step's reads of Qs, Ds, Pu, dS are done
     for (int idx = tid; idx < KV_QROWS * hd; idx += KV_THREADS) {
@@ -478,11 +486,31 @@ inline cudaError_t launch_bwd_cores(const T* q, const T* k, const T* v, const fl
 
 }  // namespace ff
 
-#include "flash_bwd_tc.cuh"
+// bf16 at hd = 64 runs on the tensor cores: the whole-row kernels of
+// flash_bwd_tc.cuh up to BT_MAX_SK keys, the key-tiled pair of
+// flash_bwd_tiled_tc.cuh past them. tools/time_key_tiles.py builds two
+// variants: FF_KEY_TILES_ALWAYS sends every such call to the key-tiled
+// pair (and every other call to the CUDA-core key-tiled dq),
+// FF_CUDA_CORE_TILES the calls past BT_MAX_SK to the CUDA-core kernels,
+// the dispatch before the key-tiled pair.
+static bool bwd_on_tc(int dtype, int hd) { return dtype == FF_BFLOAT16 && hd == ff::BT_HD; }
 
-// The call runs the tensor-core kernels of flash_bwd_tc.cuh.
+static bool bwd_tiled_tc(int dtype, int Sk, int hd) {
+#if defined(FF_CUDA_CORE_TILES)
+  return false;
+#elif defined(FF_KEY_TILES_ALWAYS)
+  return bwd_on_tc(dtype, hd);
+#else
+  return bwd_on_tc(dtype, hd) && Sk > ff::BT_MAX_SK;
+#endif
+}
+
 static bool bwd_tensor_cores(int dtype, int Sk, int hd) {
-  return dtype == FF_BFLOAT16 && hd == ff::BT_HD && Sk <= ff::BT_MAX_SK;
+#ifdef FF_KEY_TILES_ALWAYS
+  return false;
+#else
+  return bwd_on_tc(dtype, hd) && Sk <= ff::BT_MAX_SK;
+#endif
 }
 
 FF_EXPORT int flash_bwd(int dtype, const void* q, const void* k, const void* v, const void* bias,
@@ -505,6 +533,10 @@ FF_EXPORT int flash_bwd(int dtype, const void* q, const void* k, const void* v, 
     auto qb = static_cast<const bf16*>(q), kb = static_cast<const bf16*>(k);
     auto vb = static_cast<const bf16*>(v), db = static_cast<const bf16*>(dout);
     auto dqb = static_cast<bf16*>(dq), dkb = static_cast<bf16*>(dk), dvb = static_cast<bf16*>(dv);
+    if (bwd_tiled_tc(dtype, Sk, hd))
+      return ff::launch_bwd_tiled_tc(qb, kb, vb, b, l, db, dqb, dkb, dvb, dl,
+                                     static_cast<uint32_t*>(keep_bits), N, Sq, Sk, H, scale,
+                                     causal, drop, st);
     if (bwd_tensor_cores(dtype, Sk, hd))
       return ff::launch_bwd_tc(qb, kb, vb, b, l, db, dqb, dkb, dvb, dl,
                                static_cast<uint32_t*>(keep_bits), N, Sq, Sk, H, scale, causal,
@@ -518,6 +550,7 @@ FF_EXPORT int flash_bwd(int dtype, const void* q, const void* k, const void* v, 
 // Dynamic shared memory the call's kernels need (the larger of the two),
 // so the wrapper can refuse a key length that does not fit.
 FF_EXPORT size_t flash_bwd_smem_bytes(int dtype, int Sk, int hd) {
+  if (bwd_tiled_tc(dtype, Sk, hd)) return ff::bwd_tiled_tc_smem_bytes();
   if (bwd_tensor_cores(dtype, Sk, hd)) return ff::bwd_tc_smem_bytes(Sk);
   const size_t a = ff::bwd_dq_tiled(Sk, hd) ? ff::bwd_dq_tiled_smem_bytes(hd)
                                             : ff::bwd_dq_smem_bytes(Sk, hd);
@@ -525,8 +558,10 @@ FF_EXPORT size_t flash_bwd_smem_bytes(int dtype, int Sk, int hd) {
   return a > b ? a : b;
 }
 
-// Keys a tile of the call's dq kernel; 0: the whole key side is staged.
+// Keys a tile of the call's dq kernel (64: the tensor-core key-tiled
+// pair); 0: the whole key side is staged.
 FF_EXPORT int flash_bwd_key_tile(int dtype, int Sk, int hd) {
+  if (bwd_tiled_tc(dtype, Sk, hd)) return ff::TT_KEYS;
   return !bwd_tensor_cores(dtype, Sk, hd) && ff::bwd_dq_tiled(Sk, hd) ? ff::BWD_TILE_KEYS : 0;
 }
 
@@ -534,6 +569,7 @@ FF_EXPORT int flash_bwd_key_tile(int dtype, int Sk, int hd) {
 // tensor-core kernels with dropout pass the dq kernel's keep bits on.
 FF_EXPORT size_t flash_bwd_workspace_bytes(int dtype, int N, int Sq, int Sk, int H, int hd,
                                            int dropout) {
+  if (bwd_tiled_tc(dtype, Sk, hd) && dropout) return ff::bwd_tiled_tc_keep_bytes(N, Sq, Sk, H);
   if (bwd_tensor_cores(dtype, Sk, hd) && dropout)
     return (size_t)N * H * ((Sq + 15) / 16) * ff::BT_KEEP_GROUP * sizeof(uint32_t);
   return 0;

@@ -1,7 +1,9 @@
 // Tensor-core kernels of the flash backward (flash_bwd.cu says what the
-// backward computes and why it is two kernels): bf16, hd = 64, Sk <= 256.
-// Products run on mma.sync m16n8k16 with fp32 accumulation; fragment
-// layouts are those of common.cuh.
+// backward computes and why it is two kernels): bf16, hd = 64. The dq
+// kernel here takes Sk <= 256 (the whole key side in shared memory); the
+// dk/dv kernel takes any Sk, after this dq kernel or after the key-tiled
+// one of flash_bwd_tiled_tc.cuh. Products run on mma.sync m16n8k16 with
+// fp32 accumulation; fragment layouts are those of common.cuh.
 //
 // Data path. Every bf16 tile sits in shared memory row-major, as it lies
 // in device memory, with rows padded to 144 bytes so that the eight rows of
@@ -17,11 +19,15 @@
 //
 // Dropout. The dq kernel draws every keep bit of the call (one Philox call
 // per four elements, common.cuh) and writes them out as its lanes hold
-// them: per (sequence, head) and group of 16 query rows, each lane's four
-// words of bits (tile nt, element i of the mma C fragment at bit 4 nt + i),
-// 512 bytes a group: N * H * ceil(Sq / 16) * 512 bytes, 70.8 MB at the
-// cross-attention shape of N = 32. The dk/dv kernel reads them through its
-// ring with the q and do tiles and draws nothing.
+// them. This file's dq kernel (KEEP_ROWS): per (sequence, head) and group
+// of 16 query rows, each lane's four words of bits (tile nt, element i of
+// the mma C fragment at bit 4 nt + i), 512 bytes a group: N * H *
+// ceil(Sq / 16) * 512 bytes, 70.8 MB at the cross-attention shape of N =
+// 32. The key-tiled dq kernel (KEEP_TILES): per group of 16 rows and
+// 64-key tile, one word a lane, 128 bytes: N * H * ceil(Sq / 16) *
+// ceil(Sk / 64) * 128 bytes, Sq * Sk / 8 a (sequence, head). The dk/dv
+// kernel reads them through its ring with the q and do tiles and draws
+// nothing.
 #pragma once
 
 #include "common.cuh"
@@ -36,30 +42,56 @@ constexpr int BT_DQ_WARPS = BT_QT / 16;  // dq: a warp owns 16 rows of the tile
 constexpr int BT_DQ_STAGES = 2;
 constexpr int BT_KV_MAX_WARPS = 4;       // dk/dv: a warp owns 16 keys
 constexpr int BT_KV_STAGES = 3;
-constexpr int BT_KEEP_GROUP = 32 * 4;    // keep-bit words per 16 query rows
+constexpr int BT_KEEP_GROUP = 32 * 4;    // KEEP_ROWS: keep-bit words per 16 query rows
+constexpr int BT_KEEP_TILE = 32;         // KEEP_TILES: words per 16 query rows and 64-key tile
+
+// The keep-bit layout a ring stage copies (the file's header describes both)
+enum BwdKeep { KEEP_NONE = 0, KEEP_ROWS = 1, KEEP_TILES = 2 };
+__host__ __device__ constexpr int bt_keep_words(int keep) {
+  return keep == KEEP_ROWS ? BT_KEEP_GROUP : keep == KEEP_TILES ? BT_KEEP_TILE : 0;
+}
 
 // One ring stage: the q and do tiles, then NF fp32 values per row, then
-// (dk/dv) the rows' keep bits.
-__host__ __device__ constexpr size_t bwd_stage_bytes(int nf, bool bits) {
+// (dk/dv) the rows' keep bits in layout KEEP.
+__host__ __device__ constexpr size_t bwd_stage_bytes(int nf, int keep) {
   return (size_t)2 * BT_QT * BT_STR * 2 + (size_t)nf * BT_QT * 4 +
-         (bits ? (size_t)BT_QT / 16 * BT_KEEP_GROUP * 4 : 0);
+         (size_t)BT_QT / 16 * bt_keep_words(keep) * 4;
 }
 
 template <int KT> constexpr size_t bwd_dq_tc_smem_bytes() {
   return (size_t)2 * KT * 16 * BT_STR * 2 + (size_t)KT * 16 * 4 +
-         BT_DQ_STAGES * bwd_stage_bytes(1, false);
+         BT_DQ_STAGES * bwd_stage_bytes(1, KEEP_NONE);
 }
-constexpr size_t bwd_dkv_tc_smem_bytes() { return BT_KV_STAGES * bwd_stage_bytes(2, true); }
+// the dk/dv kernel's ring, with room for the keep bits of the layout its
+// dq kernel writes
+constexpr size_t bwd_dkv_tc_smem_bytes(bool tiled) {
+  return BT_KV_STAGES * bwd_stage_bytes(2, tiled ? KEEP_TILES : KEEP_ROWS);
+}
+
+// Under the causal mask row i sees keys 0 .. i. Where key 0 of sequence n
+// is live (its bias above the float32 minimum) every row sees a live key,
+// its lse is finite and p = exp(s - lse) is exactly 0 above the diagonal,
+// so a kernel may skip the key tiles past its query rows (dq) or the query
+// rows before its keys (dk/dv). A row whose keys 0 .. i are all masked has
+// its lse at the float32 minimum and p = 1 at EVERY key, above the
+// diagonal too, as in the reference (faceformer_tpu/ops/flash.py:153): in
+// a sequence whose key 0 is masked every kernel walks every tile. The dq
+// and dk/dv kernels of one call take the same rule, so the dk/dv kernel
+// reads only keep bits that its dq kernel drew.
+__device__ __forceinline__ bool causal_skips(int causal, const float* bias, int n, int Sk) {
+  return causal && bias[(size_t)n * Sk] > NEG;
+}
 
 // Start the copy of query tile t (rows t * BT_QT ..) of q and do, of NF
-// per-row fp32 values (f0 = lse, f1 = delta) and, with BITS, of the rows'
-// keep bits into one ring stage. Every thread of the block calls it; it
-// commits nothing.
-template <int NF, bool BITS>
+// per-row fp32 values (f0 = lse, f1 = delta) and of the rows' keep bits in
+// layout KEEP (KEEP_TILES: those of key tile kt of ktiles) into one ring
+// stage. Every thread of the block calls it; it commits nothing.
+template <int NF, int KEEP>
 __device__ __forceinline__ void bwd_stage_tile(unsigned char* stage, const __nv_bfloat16* q,
                                                const __nv_bfloat16* dout, const float* f0,
                                                const float* f1, const uint32_t* bits, int n,
-                                               int h, int H, int Sq, int t) {
+                                               int h, int H, int Sq, int t, int kt = 0,
+                                               int ktiles = 0) {
   auto Qs = reinterpret_cast<__nv_bfloat16*>(stage);
   auto Ds = Qs + BT_QT * BT_STR;
   auto Fs = reinterpret_cast<float*>(Ds + BT_QT * BT_STR);
@@ -78,14 +110,16 @@ __device__ __forceinline__ void bwd_stage_tile(unsigned char* stage, const __nv_
     const size_t gi = ok ? ((size_t)n * Sq + i0 + r) * H + h : 0;
     cp_async4(Fs + c, (c < BT_QT ? f0 : f1) + gi, ok);
   }
-  if constexpr (BITS) {
+  if constexpr (KEEP != KEEP_NONE) {
+    constexpr int W = bt_keep_words(KEEP);
     auto Ws = reinterpret_cast<uint32_t*>(Fs + NF * BT_QT);
     const int groups = (Sq + 15) / 16, g0 = t * (BT_QT / 16);
-    for (int c = threadIdx.x; c < BT_QT / 16 * BT_KEEP_GROUP / 4; c += blockDim.x) {
-      const int grp = c / (BT_KEEP_GROUP / 4), w0 = (c % (BT_KEEP_GROUP / 4)) * 4;
+    for (int c = threadIdx.x; c < BT_QT / 16 * W / 4; c += blockDim.x) {
+      const int grp = c / (W / 4), w0 = (c % (W / 4)) * 4;
       const bool ok = g0 + grp < groups;
-      const size_t gi = ok ? (((size_t)n * H + h) * groups + g0 + grp) * BT_KEEP_GROUP + w0 : 0;
-      cp_async16(Ws + grp * BT_KEEP_GROUP + w0, bits + gi, ok);
+      const size_t row = ((size_t)n * H + h) * groups + g0 + grp;
+      const size_t gi = ok ? (KEEP == KEEP_ROWS ? row : row * ktiles + kt) * W + w0 : 0;
+      cp_async16(Ws + grp * W + w0, bits + gi, ok);
     }
   }
 }
@@ -110,7 +144,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        int causal, Dropout drop) {
   using bf16 = __nv_bfloat16;
   constexpr int SKP = KT * 16, NT = 2 * KT, S = BT_DQ_STAGES;
-  constexpr size_t STAGE = bwd_stage_bytes(1, false);
+  constexpr size_t STAGE = bwd_stage_bytes(1, KEEP_NONE);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [SKP][BT_STR]
   bf16* Vs = Ks + SKP * BT_STR;               // [SKP][BT_STR]
@@ -141,7 +175,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   for (int s = 0; s < S - 1; ++s) {
     const int t = blockIdx.y + s * splits;
     if (t < tiles)
-      bwd_stage_tile<1, false>(ring + s * STAGE, q, dout, lse, nullptr, nullptr, n, h, H, Sq, t);
+      bwd_stage_tile<1, KEEP_NONE>(ring + s * STAGE, q, dout, lse, nullptr, nullptr, n, h, H, Sq,
+                                   t);
     cp_async_commit();
   }
 
@@ -150,8 +185,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     __syncthreads();  // tile t has landed everywhere; stage (it - 1) % S is free
     const int tn = t + (S - 1) * splits;
     if (tn < tiles)
-      bwd_stage_tile<1, false>(ring + ((it + S - 1) % S) * STAGE, q, dout, lse, nullptr, nullptr,
-                               n, h, H, Sq, tn);
+      bwd_stage_tile<1, KEEP_NONE>(ring + ((it + S - 1) % S) * STAGE, q, dout, lse, nullptr,
+                                   nullptr, n, h, H, Sq, tn);
     cp_async_commit();
 
     const bf16* Qs = reinterpret_cast<const bf16*>(ring + (it % S) * STAGE);
@@ -306,13 +341,16 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 // 2 idle), so products are padded to 16 keys only. A warp keeps its keys'
 // K and V rows in registers as A fragments and its dK, dV in fp32
 // registers for the whole walk. The block walks every query tile (from the
-// tile of its first key when causal) through a 3-stage ring; each staged
-// tile (with its keep bits) feeds all the block's keys. Per 16 queries a
+// tile of its first key when causal_skips) through a 3-stage ring; each
+// staged tile (with its keep bits) feeds all the block's keys. TILED: after
+// the key-tiled dq kernel (flash_bwd_tiled_tc.cuh), whose keep bits it
+// reads (KEEP_TILES); the launch then gives every block 4 warps, so a
+// block's keys are one 64-key tile of that kernel. Per 16 queries a
 // warp computes s^T = k . q^T and dp^T = v . do^T (16 keys x 16 queries),
 // p_used^T and ds^T, then dk += ds^T . q and dv += p_used^T . do. Four
 // products per tile. The walk order is fixed and nothing is summed across
 // blocks, so dk and dv are bitwise repeatable.
-template <bool DROP>
+template <bool DROP, bool TILED>
 __global__ void __launch_bounds__(BT_KV_MAX_WARPS * 32)
 flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
@@ -323,11 +361,14 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         int causal, Dropout drop) {
   using bf16 = __nv_bfloat16;
   constexpr int S = BT_KV_STAGES;
-  constexpr size_t STAGE = bwd_stage_bytes(2, true);
+  constexpr int LAYOUT = TILED ? KEEP_TILES : KEEP_ROWS;
+  constexpr int KEEP = DROP ? LAYOUT : KEEP_NONE;
+  constexpr size_t STAGE = bwd_stage_bytes(2, LAYOUT);
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int j0 = blockIdx.y * (blockDim.x / 32) * 16;
+  const int kt = TILED ? j0 / BT_QT : 0, ktiles = TILED ? (Sk + BT_QT - 1) / BT_QT : 0;
   const size_t E = (size_t)H * BT_HD;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
@@ -339,8 +380,11 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int ka = j0 + warp * 16 + g, kb = ka + 8;
   // the dq lanes that drew ka's and kb's bits: tile nt = ka / 8 (kb's is
   // nt + 1, in the same word) of rows 2 tig, 2 tig + 1 (+ 8) of a group,
-  // pair of keys g / 2, element g % 2 (+ 2 for the rows + 8)
-  const int kword = ka / 64, kbit = ka / 8 % 8 * 4 + g % 2, klane = 8 * tig + g / 2;
+  // pair of keys g / 2, element g % 2 (+ 2 for the rows + 8); KEEP_ROWS:
+  // word ka / 64 of the lane's four, KEEP_TILES: the lane's one word of
+  // key tile kt
+  const int kword = TILED ? 0 : ka / 64, kbit = ka / 8 % 8 * 4 + g % 2;
+  const int klane = 8 * tig + g / 2, kstride = TILED ? 1 : 4;
   const bool va = ka < Sk, vb = kb < Sk;
   const size_t offa = ((size_t)n * Sk + ka) * E + (size_t)h * BT_HD;
   const size_t offb = ((size_t)n * Sk + kb) * E + (size_t)h * BT_HD;
@@ -361,13 +405,16 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     for (int i = 0; i < 4; ++i) ok[dt][i] = ov[dt][i] = 0.f;
 
   // under the causal mask the rows before the block's first key see none
-  // of its keys: their p is exactly 0
-  const int tiles = (Sq + BT_QT - 1) / BT_QT, t0 = causal ? j0 / BT_QT : 0;
+  // of its keys, their p exactly 0, unless a row sees no live key (the
+  // bias is read only where there are tiles to skip, off the critical path
+  // of short blocks such as the parallel decoder's 40-key ones)
+  const int tiles = (Sq + BT_QT - 1) / BT_QT;
+  const int t0 = j0 >= BT_QT && causal_skips(causal, bias, n, Sk) ? j0 / BT_QT : 0;
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
     if (t0 + s < tiles)
-      bwd_stage_tile<2, DROP>(smem + s * STAGE, q, dout, lse, delta, keep_bits, n, h, H, Sq,
-                              t0 + s);
+      bwd_stage_tile<2, KEEP>(smem + s * STAGE, q, dout, lse, delta, keep_bits, n, h, H, Sq,
+                              t0 + s, kt, ktiles);
     cp_async_commit();
   }
 
@@ -375,8 +422,8 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     cp_async_wait<S - 2>();
     __syncthreads();  // tile t has landed everywhere; stage (it - 1) % S is free
     if (t + S - 1 < tiles)
-      bwd_stage_tile<2, DROP>(smem + ((it + S - 1) % S) * STAGE, q, dout, lse, delta, keep_bits,
-                              n, h, H, Sq, t + S - 1);
+      bwd_stage_tile<2, KEEP>(smem + ((it + S - 1) % S) * STAGE, q, dout, lse, delta, keep_bits,
+                              n, h, H, Sq, t + S - 1, kt, ktiles);
     cp_async_commit();
     if (!active) continue;
 
@@ -412,8 +459,8 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
         const int ib = c * 16 + t2 * 8 + tig * 2;  // the lane's first query within the tile
         bool keep[4];
         if constexpr (DROP) {
-          const uint32_t* wg = Ws + c * BT_KEEP_GROUP + kword;
-          const uint32_t w0 = wg[klane * 4], w1 = wg[(klane + 4) * 4];  // rows ib, ib + 1
+          const uint32_t* wg = Ws + c * bt_keep_words(LAYOUT) + kword;
+          const uint32_t w0 = wg[klane * kstride], w1 = wg[(klane + 4) * kstride];  // ib, ib + 1
           const int bit = kbit + 2 * t2;
           keep[0] = (w0 >> bit) & 1u;
           keep[1] = (w1 >> bit) & 1u;
@@ -510,10 +557,10 @@ inline cudaError_t launch_bwd_tc_as(const __nv_bfloat16* q, const __nv_bfloat16*
   const int key_warps = (Sk + 15) / 16;
   const int blocks = (key_warps + BT_KV_MAX_WARPS - 1) / BT_KV_MAX_WARPS;
   const int warps = (key_warps + blocks - 1) / blocks;
-  auto kv_kernel = flash_bwd_dkv_tc_kernel<DROP>;
-  e = allow_smem(kv_kernel, bwd_dkv_tc_smem_bytes());
+  auto kv_kernel = flash_bwd_dkv_tc_kernel<DROP, false>;
+  e = allow_smem(kv_kernel, bwd_dkv_tc_smem_bytes(false));
   if (e != cudaSuccess) return e;
-  kv_kernel<<<dim3(N * H, blocks), warps * 32, bwd_dkv_tc_smem_bytes(), stream>>>(
+  kv_kernel<<<dim3(N * H, blocks), warps * 32, bwd_dkv_tc_smem_bytes(false), stream>>>(
       q, k, v, bias, lse, delta, dout, keep_bits, dk, dv, Sq, Sk, H, scale, causal, drop);
   return cudaGetLastError();
 }
@@ -531,7 +578,7 @@ inline size_t bwd_tc_smem_bytes(int Sk) {
     case 14: dq = bwd_dq_tc_smem_bytes<14>(); break;
     default: dq = bwd_dq_tc_smem_bytes<16>();
   }
-  return dq > bwd_dkv_tc_smem_bytes() ? dq : bwd_dkv_tc_smem_bytes();
+  return dq > bwd_dkv_tc_smem_bytes(false) ? dq : bwd_dkv_tc_smem_bytes(false);
 }
 
 inline cudaError_t launch_bwd_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,

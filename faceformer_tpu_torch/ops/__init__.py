@@ -10,7 +10,9 @@ device, for comparisons.
 went through the kernels; ``reset_launches`` sets every count to 0.
 "flash_fwd_tiled_tc" counts the flash forward's launches that ran its
 key-tiled tensor-core kernel (bf16 at hd = 64 past 256 keys), each also
-counted under "flash_fwd". The last two entries count test entries that
+counted under "flash_fwd"; "flash_bwd_tiled_tc" the flash backward's
+launches that ran its key-tiled tensor-core pair (the same calls), each
+also counted under "flash_bwd". The last two entries count test entries that
 expose a phase of K4 alone (its pointer argmax with the gather, and one of
 its GEMMs); no main path calls them.
 """
@@ -20,8 +22,8 @@ from __future__ import annotations
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"pointer_argmax": 0, "flash_fwd": 0, "flash_fwd_tiled_tc": 0,
-                            "flash_bwd": 0, "decode_step": 0, "pointer_argmax_gather": 0,
-                            "decode_gemm": 0}
+                            "flash_bwd": 0, "flash_bwd_tiled_tc": 0, "decode_step": 0,
+                            "pointer_argmax_gather": 0, "decode_gemm": 0}
 
 
 def reset_launches() -> None:

@@ -9,8 +9,8 @@ serving the encoder's self-attention and the ``reference`` engine's decoder;
 in training also the causal decoder self-attention and the anchor-broadcast
 cross-attention, forward and backward. Kernels: csrc/flash.cu (+
 csrc/attention.cuh, csrc/attention_tiled_tc.cuh) and csrc/flash_bwd.cu (+
-csrc/flash_bwd_tc.cuh), whose headers say what bounds them on the card and
-how their designs answer that.
+csrc/flash_bwd_tc.cuh, csrc/flash_bwd_tiled_tc.cuh), whose headers say what
+bounds them on the card and how their designs answer that.
 
 Dropout cannot reproduce the TPU PRNG's bits. The keep mask here is
 counter-based (Philox4x32-10 keyed on the call's seed, counter = key index
@@ -32,7 +32,9 @@ from faceformer_tpu_torch.ops import _build
 
 NEG = float(np.finfo(np.float32).min)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-TILED_TC_KEYS = 64  # keys a tile of the tensor-core tiled forward (csrc/attention_tiled_tc.cuh)
+# keys a tile of the tensor-core key-tiled kernels: the forward
+# (csrc/attention_tiled_tc.cuh) and the backward's dq (csrc/flash_bwd_tiled_tc.cuh)
+TILED_TC_KEYS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -276,8 +278,9 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
     shape and dtype. The bias is a mask and the seed is RNG material:
     neither has a gradient.
 
-    CUDA tensors launch the kernels (a key-tiled dq kernel where the key
-    side does not fit a block's shared memory); CPU tensors (or
+    CUDA tensors launch the kernels (bf16 at hd = 64 past 256 keys: the
+    tensor-core key-tiled pair; elsewhere a key-tiled dq kernel where the
+    key side does not fit a block's shared memory); CPU tensors (or
     impl="plain") run ``flash_attention_bwd_plain``."""
     _check(q, k, v, bias)
     n, sq, h, hd = q.shape
@@ -301,6 +304,7 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
     if hd > lib.flash_bwd_max_head_dim() or (dt == 1 and hd % 8):
         raise ValueError(f"head dim {hd} is not supported by the backward kernel")
     _check_smem("flash_bwd", "flash_bwd_smem_bytes", dt, sk, hd)
+    tiled_tc = key_tile("bwd", q.dtype, sk, hd) == TILED_TC_KEYS
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((n, sq, h), dtype=torch.float32, device=q.device)
     # the keep bits the dq kernel draws and the dk/dv kernel reads
@@ -319,6 +323,8 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
                 _build.stream_ptr(q.device))
     _build.check("flash_bwd", status, "flash_bwd launch")
     ops.LAUNCHES["flash_bwd"] += 1
+    if tiled_tc:
+        ops.LAUNCHES["flash_bwd_tiled_tc"] += 1
     return dq, dk, dv
 
 

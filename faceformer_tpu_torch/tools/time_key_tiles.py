@@ -6,17 +6,23 @@ them can take, on one card.
 The usual build sends a K2 call past 256 keys to a key-tiled kernel (bf16
 at hd = 64: ``csrc/attention_tiled_tc.cuh``, on the tensor cores; else
 ``csrc/flash.cu::attention_tiled_kernel``; at hd = 32 only past its
-whole-row kernel's shared memory) and K3's dq to
-``csrc/flash_bwd.cu::flash_bwd_dq_tiled_kernel`` only where the whole-row
-kernel's shared memory exceeds a block's. This script builds more copies of
-the sources, each sending the calls elsewhere, and runs each shape through
-every build: the outputs must agree with the usual build's within the
-kernels' gates, and each is timed with CUDA events. The builds:
-  - key-tiled (``FF_KEY_TILES_ALWAYS``, K2 and K3): every call key-tiled;
+whole-row kernel's shared memory). K3 in bf16 at hd = 64 past 256 keys
+runs the tensor-core key-tiled pair (``csrc/flash_bwd_tiled_tc.cuh``),
+elsewhere ``csrc/flash_bwd.cu::flash_bwd_dq_tiled_kernel`` only where the
+whole-row dq kernel's shared memory exceeds a block's. This script builds
+more copies of the sources, each sending the calls elsewhere, and runs
+each shape through every build: the outputs must agree with the usual
+build's within the kernels' gates, and each is timed with CUDA events. The
+builds:
+  - key-tiled (``FF_KEY_TILES_ALWAYS``, K2 and K3): every call key-tiled
+    (K3 in bf16 at hd = 64 on the tensor-core pair at any key length);
   - whole-row (``FF_WHOLE_ROWS``, K2): the whole-row kernels wherever they
     fit a block, the dispatch before the tensor-core tiled kernel;
+  - K3 CUDA cores (``FF_CUDA_CORE_TILES``, K3): K3 past 256 keys on the
+    CUDA-core whole-row or key-tiled dq and the CUDA-core dk/dv, the
+    dispatch before the tensor-core key-tiled pair;
   - CUDA-core tiled (``FF_KEY_TILES_ALWAYS`` and ``FF_CUDA_CORE_TILES``,
-    K2): every call on the CUDA-core tiled kernel;
+    K2 and K3): every call on the CUDA-core tiled kernels;
   - light first (``FF_KEY_TILES_ALWAYS`` and ``FF_LIGHT_FIRST``, K2): the
     tensor-core tiled kernel launching its query tiles in order, early
     (light, under a causal mask) tiles first, where the usual order runs
@@ -56,7 +62,9 @@ GATES = {"float32": 1e-4, "bfloat16": 2e-2}  # max error relative to the output'
 # build -> (sources, nvcc defines)
 BUILDS = {"key-tiled": (("flash", "flash_bwd"), ("FF_KEY_TILES_ALWAYS",)),
           "whole-row": (("flash",), ("FF_WHOLE_ROWS",)),
-          "CUDA-core tiled": (("flash",), ("FF_KEY_TILES_ALWAYS", "FF_CUDA_CORE_TILES")),
+          "K3 CUDA cores": (("flash_bwd",), ("FF_CUDA_CORE_TILES",)),
+          "CUDA-core tiled": (("flash", "flash_bwd"), ("FF_KEY_TILES_ALWAYS",
+                                                      "FF_CUDA_CORE_TILES")),
           "light first": (("flash",), ("FF_KEY_TILES_ALWAYS", "FF_LIGHT_FIRST"))}
 
 
@@ -153,9 +161,10 @@ def main() -> int:
         for kernel, call in calls.items():
             which = "fwd" if kernel == "flash_fwd" else "bwd"
             runs = {}
+            source = "flash" if kernel == "flash_fwd" else "flash_bwd"
             for build, libs in variants.items():
-                if which == "bwd" and build != "usual" and "flash_bwd" not in libs:
-                    continue  # a K2-only build
+                if build != "usual" and source not in libs:
+                    continue  # a build of the other kernel alone
                 with libraries(libs):
                     runs[build] = dict(tile=key_tile(which, dtype, sk, hd), out=call(),
                                        ms=time_ms(call))

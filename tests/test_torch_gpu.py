@@ -277,19 +277,19 @@ def check_flash_bwd(cuda_device, dtype, tol, rate, n, sq, sk, causal, h, hd):
 # keys), the JAX kernel's reach (2,000 causal keys) and a sample whose keys
 # are all padded. (fwd, bwd) say which tiled: every K2 call past 256 keys
 # at hd = 64 (bf16 on the tensor-core tiled kernel), at hd = 32 past its
-# whole-row kernels' shared memory (fp32 ~890 keys, bf16 1,411); K3's dq
-# past its shared memory (391 keys at hd = 64 in both dtypes, 702 at hd =
-# 32).
+# whole-row kernels' shared memory (fp32 ~890 keys, bf16 1,411); K3 in
+# bf16 at hd = 64 past 256 keys (the tensor-core key-tiled pair), else
+# K3's dq past its shared memory (391 keys at hd = 64, 702 at hd = 32).
 LONG_KEY_SHAPES = [((2, 512, 512, True, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
                    ((2, 300, 1000, False, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
                    ((1, 1500, 1500, True, 32, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
                    ((2, 200, 1000, False, 32, 0), {"fp32": (1, 1), "bf16": (0, 1)}),
-                   ((2, 257, 257, True, 64, 0), {"fp32": (1, 0), "bf16": (1, 0)}),
-                   ((2, 300, 320, False, 64, 0), {"fp32": (1, 0), "bf16": (1, 0)}),
+                   ((2, 257, 257, True, 64, 0), {"fp32": (1, 0), "bf16": (1, 1)}),
+                   ((2, 300, 320, False, 64, 0), {"fp32": (1, 0), "bf16": (1, 1)}),
                    ((4, 1, 512, False, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
                    ((4, 37, 512, False, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
                    ((1, 2000, 2000, True, 64, 0), {"fp32": (1, 1), "bf16": (1, 1)}),
-                   ((3, 100, 384, False, 64, 1), {"fp32": (1, 0), "bf16": (1, 0)})]
+                   ((3, 100, 384, False, 64, 1), {"fp32": (1, 0), "bf16": (1, 1)})]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -307,8 +307,10 @@ def test_flash_long_keys_on_card(cuda_device, dtype, tol_fwd, tol_bwd, rate, sha
     key = "fp32" if dtype == torch.float32 else "bf16"
     assert (bool(key_tile("fwd", dtype, sk, hd)), bool(key_tile("bwd", dtype, sk, hd))) == \
         tuple(map(bool, tiled[key]))
-    if key == "bf16" and hd == 64:
+    tiled_tc = key == "bf16" and hd == 64
+    if tiled_tc:
         assert key_tile("fwd", dtype, sk, hd) == 64  # the tensor-core tiled kernel
+        assert key_tile("bwd", dtype, sk, hd) == 64  # the tensor-core tiled pair
     q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=h, hd=hd, dead=dead)
     kw = dict(causal=causal, dropout_rate=rate, seed=21)
     out, lse = launched("flash_fwd", flash_attention_fwd, q, k, v, bias, **kw)
@@ -331,7 +333,9 @@ def test_flash_long_keys_on_card(cuda_device, dtype, tol_fwd, tol_bwd, rate, sha
             window = slice(w0, w0 + width)
             assert torch.equal((p_used != 0) & live[..., window],
                                keep[..., window] & live[..., window])
+    before = ops.LAUNCHES["flash_bwd_tiled_tc"]
     got = launched("flash_bwd", flash_attention_bwd, q, k, v, bias, lse_p, do, **kw)
+    assert ops.LAUNCHES["flash_bwd_tiled_tc"] == before + tiled_tc
     want = flash_attention_bwd(q, k, v, bias, lse_p, do, impl="plain", **kw)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(a.float()).all(), name
@@ -357,6 +361,48 @@ def test_flash_fwd_masked_rows_causal_on_card(cuda_device, dtype, tol, rate, hd,
     out_p, lse_p = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
     assert float((out.float() - out_p.float()).abs().max()) <= tol
     assert float((lse - lse_p).abs().max()) <= tol
+
+
+# (hd, Sk): every K3 route under the causal mask with rows that see no live
+# key, and the dq tile each takes ({"fp32": ..., "bf16": ...}; 0 = whole
+# row): the whole-row tensor-core dq and dk/dv (bf16, 200 keys), the
+# tensor-core key-tiled pair (bf16, 300 and 600), the CUDA-core whole-row
+# and key-tiled dq with the CUDA-core dk/dv (fp32 at 300 and 600; hd = 32
+# at 1,500 in both dtypes)
+MASKED_ROW_SHAPES = [((64, 200), {"fp32": 0, "bf16": 0}), ((64, 300), {"fp32": 0, "bf16": 64}),
+                     ((64, 600), {"fp32": 128, "bf16": 64}),
+                     ((32, 1500), {"fp32": 128, "bf16": 128})]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("shape,tile", MASKED_ROW_SHAPES,
+                         ids=[f"hd{s[0]}-sk{s[1]}" for s, _ in MASKED_ROW_SHAPES])
+def test_flash_bwd_masked_rows_causal_on_card(cuda_device, dtype, tol, rate, shape, tile):
+    """K3 under the causal mask where rows have every key up to their own
+    masked: a sample whose keys are all padded, and one whose first 70
+    keys are, so its first 70 rows see no live key. Such a row's lse is the
+    float32 minimum and p = exp(s - lse) is 1 at every key, above the
+    diagonal too (faceformer_tpu/ops/flash.py:153): every kernel must walk
+    the tiles its causal skips would drop. Against the plain version with
+    K3's gates (fp32 1e-4; bf16 0.03 of the largest and of the mean
+    magnitude), bitwise repeatable."""
+    hd, sk = shape
+    q, k, v, bias, do = flash_case(cuda_device, dtype, 3, 300, sk, h=2, hd=hd, dead=1)
+    bias[0, :70] = NEG
+    kw = dict(causal=True, dropout_rate=rate, seed=5)
+    assert key_tile("bwd", dtype, sk, hd) == tile["fp32" if dtype == torch.float32 else "bf16"]
+    lse = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)[1]
+    assert bool((lse[0, :70] <= NEG).all()) and bool((lse[2] <= NEG).all())
+    got = launched("flash_bwd", flash_attention_bwd, q, k, v, bias, lse, do, **kw)
+    want = flash_attention_bwd(q, k, v, bias, lse, do, impl="plain", **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert rel_err(a, b) <= tol, (name, rel_err(a, b))
+        mean = float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+        assert mean <= tol, (name, mean)
+    again = flash_attention_bwd(q, k, v, bias, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def decode_state(dev, dtype, n=3, step=5, seed=2, cfg=CFG):
