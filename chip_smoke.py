@@ -47,12 +47,23 @@ Phases (each prints one or more lines; any failure exits non-zero):
      validation and checkpoints after each), tests ``last`` with the fused
      engine twice and with causal_cache, validates it, resumes it for
      epoch 3 alone, and tests a Lightning-style .ckpt exported from it;
-     ``tools.predict`` decodes the test wireframes. Gates: a finite loss
+     ``tools.predict --reconstruct`` decodes the test wireframes and lifts
+     its predictions to PLYs; ``reconstruction.wireframe`` and ``.mesh``
+     (4 cores) lift the causal_cache test's JSONs; then every corpus
+     solid's label faces, as the test loop's record would carry them,
+     go through both lifts (the oracle lift). Gates: a finite loss
      every step that falls from epoch 1 to 2, the checkpoints, 36 JSONs
      of four keys a test, fused byte-identical on a repeat and against
      the exported .ckpt, the resume's steps 41-60, the kernels each run
-     launched. Prints samples/s, host seconds, validate and test times,
-     checkpoint cost, peak memory and launches;
+     launched; predict's PLYs byte-equal to the wireframe command line's
+     wherever the two runs' faces agree; every lifted PLY read back to
+     the array written, every point and OBJ vertex finite; the oracle
+     lift's counts and dropped names equal to the JAX package's
+     (``ORACLE_LIFTED``, ``ORACLE_DROPPED``). Prints samples/s, host
+     seconds, validate and test times, checkpoint cost, peak memory and
+     launches; predict's decode and lift seconds, the PLYs and OBJs
+     written, the dropped solids by predicted face kind, solids/s of
+     each exporter and scipy's version;
   6. the flat SurfaceFormer at the width of configs/synthetic-dirtok-big.yml
      (d=512, 8 heads, FFN 1024, 6+6 layers, S=116 memory rows,
      label_seq_length 512, direction tokens, batch 32, bf16, dropout 0.2):
@@ -85,6 +96,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import dataclasses
 import json
@@ -1303,6 +1315,17 @@ CLI_NUM, CLI_SPLIT = 704, (654, 14, 36)
 CLI_GEN = ("--num", str(CLI_NUM), "--seed", "1", "--profile", "rich", "--max_edges", "216",
            "--max_faces", "42", "--max_face_len", "36")
 RECORD_KEYS = {"edges", "dominant_directions", "pred_faces", "label_faces"}
+# The oracle lift of that corpus (each solid's label faces in place of its
+# prediction, through both exporters), counted once on a CPU host by the
+# JAX package with scipy 1.17.0: tests/torch_recon_helpers.py's docstring
+# gives the two commands. Both exporters drop the same 20 solids, whose
+# label faces are plane+other.
+ORACLE_LIFTED = {"ply": 684, "obj": 684}
+ORACLE_DROPPED = ("00000047", "00000117", "00000131", "00000135", "00000159", "00000170",
+                  "00000188", "00000254", "00000257", "00000296", "00000366", "00000461",
+                  "00000480", "00000523", "00000590", "00000612", "00000622", "00000632",
+                  "00000644", "00000701")
+LIFT_CORES = 4  # the reconstruction command lines over the test split
 # share of test JSONs whose pred_faces agree between the bf16 fused and
 # causal_cache engines after the 40-step fit: different summation orders
 # may flip near-tied tokens, and one flipped token changes a face. Read
@@ -1311,28 +1334,90 @@ RECORD_KEYS = {"edges", "dominant_directions", "pred_faces", "label_faces"}
 CLI_AGREE_MIN = 0.9
 
 # Runs in each subprocess: counts set to 0, one module's command line, then
-# the counts and the peak device memory on a line of their own.
+# the counts, the peak device memory and the host seconds spent in
+# reconstruction.wireframe.reconstruct_file (predict --reconstruct's lift) on
+# a line of their own.
 CLI_WRAPPER = """
-import json, runpy, sys
+import json, runpy, sys, time
 import torch
 from faceformer_tpu_torch import ops
 ops.reset_launches()
 sys.argv = sys.argv[1:]
+lift = [0.0]
+if "--reconstruct" in sys.argv:
+    from faceformer_tpu_torch.reconstruction import wireframe
+    lift_file = wireframe.reconstruct_file
+    def timed_lift(*args):
+        t0 = time.perf_counter()
+        try:
+            return lift_file(*args)
+        finally:
+            lift[0] += time.perf_counter() - t0
+    wireframe.reconstruct_file = timed_lift
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
-print("CLI_STATS " + json.dumps({"launches": ops.LAUNCHES, "max_memory_allocated": peak}))
+print("CLI_STATS " + json.dumps({"launches": ops.LAUNCHES, "max_memory_allocated": peak,
+                                 "lift_seconds": lift[0]}))
 """
+
+#: prediction JSON face types, as tools/recon_coverage.py names them
+FACE_KIND = {0: "plane", 1: "cylinder", 2: "other"}
+
+
+def pred_kind_set(rec: dict) -> str:
+    """A record's predicted face kinds, joined (tools/recon_coverage.py)."""
+    kinds = sorted({FACE_KIND.get(t, "?") for t, _f in rec["pred_faces"]})
+    return "+".join(kinds) if kinds else "empty"
+
+
+def kind_histogram(records) -> dict:
+    """Records counted by their predicted face kinds."""
+    return dict(sorted(collections.Counter(pred_kind_set(r) for r in records).items()))
+
+
+def oracle_record(sample: dict, engine, mc) -> dict:
+    """One corpus sample's prediction record with its label faces as the
+    prediction, as the test loop writes a record: labels packed per anchor,
+    then the metric engine's post-processing."""
+    from faceformer_tpu_torch.data.packing import pack_label_parallel
+
+    packed = pack_label_parallel(sample["faces_indices"], mc)
+    out = engine.evaluate_sample(packed["label"], packed["label"], sample)
+    return {"edges": sample["edges"], "dominant_directions": sample["dominant_directions"],
+            "pred_faces": out["predictions"], "label_faces": out["labels"]}
+
+
+def write_oracle_record(syn: str, root: str, name: str) -> str:
+    """oracle_record of corpus sample ``name`` (a file of ``syn``/json),
+    written to ``root``/json as the test loop writes a record. Returns its
+    face kinds (pred_kind_set)."""
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.train.metrics import FaceMetrics
+    from faceformer_tpu_torch.train.trainer import NumpyJSONEncoder
+
+    cfg = load_config(CLI_CONFIG)
+    with open(os.path.join(syn, "json", name)) as f:
+        record = oracle_record(json.load(f), FaceMetrics(cfg.post_process, cfg.model.token),
+                               cfg.model)
+    with open(os.path.join(root, "json", name), "w") as f:
+        json.dump(record, f, cls=NumpyJSONEncoder)
+    return pred_kind_set(record)
+
+
+def repo_env() -> dict:
+    """This process's environment with the repository on PYTHONPATH."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return env
 
 
 def run_cli(cwd, label, module, *argv, timeout=900, tag="[5]"):
     """``python -m module argv`` in a subprocess run from ``cwd`` (logs/
     lands there); fails on a non-zero exit. Returns (stdout, launch counts
     and peak memory, wall seconds)."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, module, *argv], cwd=cwd,
-                          env=env, capture_output=True, text=True, timeout=timeout)
+                          env=repo_env(), capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n", flush=True)
@@ -1343,6 +1428,111 @@ def run_cli(cwd, label, module, *argv, timeout=900, tag="[5]"):
     print(f"{tag} {label}: rc 0 in {wall:.1f} s, launches {launched_now}, max_memory_allocated "
           f"{stats['max_memory_allocated']}", flush=True)
     return proc.stdout, stats, wall
+
+
+def run_lift(cwd, label, exporter, root, cores=LIFT_CORES):
+    """``python -m faceformer_tpu_torch.reconstruction.<exporter>`` over
+    ``root``; fails on a non-zero exit. Returns (host seconds, the names
+    written)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"faceformer_tpu_torch.reconstruction.{exporter}",
+                           "--root", root, "--num_cores", str(cores)], cwd=cwd, env=repo_env(),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n", flush=True)
+        fail(f"{label}: exit code {proc.returncode}")
+    subdir = "ply" if exporter == "wireframe" else "obj"
+    return wall, {os.path.splitext(n)[0] for n in os.listdir(os.path.join(root, subdir))}
+
+
+def lift_check_one(root: str, name: str) -> list:
+    """One record of a lifted directory lifted again: its PLY must read
+    back to the array written (each value at the writer's 10 significant
+    digits), every point and OBJ vertex be finite, every OBJ face index lie
+    within its vertices. Returns the faults found."""
+    from faceformer_tpu_torch.reconstruction.io3d import read_ply_points
+    from faceformer_tpu_torch.reconstruction.wireframe import reconstruct_wireframe
+
+    bad = []
+    with open(os.path.join(root, "json", name + ".json")) as f:
+        points = reconstruct_wireframe(json.load(f))
+    ply = os.path.join(root, "ply", name + ".ply")
+    if (points is not None) != os.path.exists(ply):
+        bad.append("lifted but no PLY" if points is not None else "PLY of an unliftable record")
+    elif points is not None:
+        written = np.array([[float(f"{v:.10g}") for v in p] for p in points])
+        if not np.all(np.isfinite(points)):
+            bad.append("PLY point not finite")
+        if not np.array_equal(read_ply_points(ply), written):
+            bad.append("PLY reads back to another array")
+    obj = os.path.join(root, "obj", name + ".obj")
+    if os.path.exists(obj):
+        with open(obj) as f:
+            rows = [line.split() for line in f]
+        verts = np.array([[float(x) for x in r[1:]] for r in rows if r[0] == "v"])
+        faces = [[int(i) for i in r[1:]] for r in rows if r[0] == "f"]
+        if not len(verts) or not np.all(np.isfinite(verts)):
+            bad.append("OBJ vertex not finite")
+        if not faces or any(not 1 <= i <= len(verts) for face in faces for i in face):
+            bad.append("OBJ face off its vertices")
+    return bad
+
+
+def check_lifted(label, root, pool):
+    """lift_check_one over every record of a lifted directory, in ``pool``;
+    fails on any fault."""
+    import functools
+
+    names = sorted(os.path.splitext(n)[0] for n in os.listdir(os.path.join(root, "json")))
+    t0 = time.perf_counter()
+    found = list(pool.map(functools.partial(lift_check_one, root), names, chunksize=8))
+    faults = {n: b for n, b in zip(names, found) if b}
+    print(f"[5] {label}: {len(names)} records lifted again and their files checked in "
+          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
+    if faults:
+        fail(f"{label}: {len(faults)} lifted files at fault: {dict(list(faults.items())[:10])}")
+
+
+def run_oracle_lift(tmp, syn, pool, cores):
+    """Every corpus solid's label faces (records written by ``pool``'s
+    workers) lifted by both command lines on ``cores``; fails unless the
+    counts and dropped names are ORACLE_LIFTED's and ORACLE_DROPPED, and
+    every file passes lift_check_one. Returns numbers."""
+    import functools
+
+    import scipy
+
+    root = os.path.join(tmp, "oracle")
+    os.makedirs(os.path.join(root, "json"))
+    names = sorted(os.listdir(os.path.join(syn, "json")))
+    t0 = time.perf_counter()
+    kinds = dict(zip((os.path.splitext(n)[0] for n in names), pool.map(
+        functools.partial(write_oracle_record, syn, root), names, chunksize=8)))
+    build_s = time.perf_counter() - t0
+    ply_s, ply = run_lift(tmp, "oracle wireframe lift", "wireframe", root, cores)
+    obj_s, obj = run_lift(tmp, "oracle mesh lift", "mesh", root, cores)
+    dropped = {k: tuple(n for n in kinds if n not in got) for k, got in (("ply", ply), ("obj", obj))}
+    n = len(kinds)
+    histogram = collections.Counter(kinds[k] for k in set(dropped["ply"]) | set(dropped["obj"]))
+    numbers = {"solids": n, "ply": len(ply), "obj": len(obj),
+               "records_build_seconds": build_s, "ply_seconds": ply_s, "obj_seconds": obj_s,
+               "ply_solids_per_s": n / ply_s, "obj_solids_per_s": n / obj_s,
+               "cores": cores, "scipy": scipy.__version__}
+    print(f"[5] oracle lift of the {n} corpus solids on {nvidia_smi()} (host seconds, "
+          f"{cores} cores, scipy {scipy.__version__}): ply {len(ply)} in {ply_s:.2f} s "
+          f"({n / ply_s:.1f} solids/s), obj {len(obj)} in {obj_s:.2f} s "
+          f"({n / obj_s:.1f} solids/s), records built in {build_s:.2f} s; dropped "
+          f"{list(dropped['ply'])} (ply), {list(dropped['obj'])} (obj), by label face kind "
+          f"{dict(sorted(histogram.items()))}", flush=True)
+    if n != CLI_NUM:
+        fail(f"oracle lift: {n} records, expected {CLI_NUM}")
+    if {"ply": len(ply), "obj": len(obj)} != ORACLE_LIFTED or \
+            dropped["ply"] != ORACLE_DROPPED or dropped["obj"] != ORACLE_DROPPED:
+        fail(f"oracle lift: counts or dropped names differ from the JAX package's "
+             f"{ORACLE_LIFTED}, {list(ORACLE_DROPPED)} (scipy {scipy.__version__} here)")
+    check_lifted("oracle lift", root, pool)
+    return numbers
 
 
 def read_jsonl(path):
@@ -1364,6 +1554,76 @@ def read_records(json_dir, count):
         if keys != RECORD_KEYS:
             fail(f"{name}: keys {sorted(keys)}, expected {sorted(RECORD_KEYS)}")
     return out
+
+
+def run_lift_phase(tmp, syn, ckpt, cache, cache_dir):
+    """``tools.predict --reconstruct`` on the test split's wireframes, both
+    reconstruction command lines over the causal_cache test's JSONs
+    (``cache``: {file name: bytes}, in ``cache_dir``), then the oracle lift
+    of the corpus. Fails unless predict's PLYs equal the wireframe command
+    line's wherever the two runs' faces agree, and every lifted file passes
+    lift_check_one (in a spawned pool of every core: this process holds a
+    CUDA context). Returns numbers for the summary line."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    stem = {k: os.path.splitext(k)[0] for k in cache}
+    pred_in = os.path.join(tmp, "pred_in", "json")
+    os.makedirs(pred_in)
+    for name in cache:
+        shutil.copy(os.path.join(syn, "json", name), pred_in)
+    out, st, _ = run_cli(tmp, "predict --reconstruct", "faceformer_tpu_torch.tools.predict",
+                         "--config", CLI_CONFIG, "--ckpt", ckpt, "--root",
+                         os.path.dirname(pred_in), "--reconstruct")
+    pred_dir = os.path.join(os.path.dirname(pred_in), "pred")
+    preds = read_records(os.path.join(pred_dir, "json"), CLI_SPLIT[2])
+    agreed = [k for k in preds if json.loads(preds[k])["pred_faces"]
+              == json.loads(cache[k])["pred_faces"]]
+    print(f"[5] predict: share of JSONs whose pred_faces equal the causal_cache test's "
+          f"{len(agreed) / len(preds):.4f}", flush=True)
+    decoded = re.search(r"^decoded \d+ samples in ([0-9.]+)s", out, re.M)
+    lifted = re.search(r"^reconstructed (\d+)/(\d+) wireframes -> ", out, re.M)
+    plys = {}
+    for name in os.listdir(os.path.join(pred_dir, "ply")):
+        with open(os.path.join(pred_dir, "ply", name), "rb") as f:
+            plys[os.path.splitext(name)[0]] = f.read()
+    print(f"[5] predict --reconstruct: {len(plys)} PLYs written of {CLI_SPLIT[2]}, decode "
+          f"{decoded and decoded.group(1)} s, lift {st['lift_seconds']:.3f} s (host)",
+          flush=True)
+    if (not decoded or not lifted or int(lifted.group(1)) != len(plys)
+            or int(lifted.group(2)) != CLI_SPLIT[2]):
+        fail("predict --reconstruct: no decode line, or its lift line disagrees with the "
+             "PLYs on disk")
+
+    # the reconstruction command lines over the causal_cache test's JSONs
+    ply_s, ply = run_lift(tmp, "wireframe over the causal_cache test", "wireframe", cache_dir)
+    obj_s, obj = run_lift(tmp, "mesh over the causal_cache test", "mesh", cache_dir)
+    records = {k: json.loads(v) for k, v in cache.items()}
+    print(f"[5] command lines over the causal_cache test's {len(cache)} JSONs "
+          f"(--num_cores {LIFT_CORES}, host seconds): ply {len(ply)} in {ply_s:.2f} s, "
+          f"obj {len(obj)} in {obj_s:.2f} s; dropped by predicted face kind "
+          f"{kind_histogram(r for k, r in records.items() if stem[k] not in ply & obj)}, "
+          f"all by predicted face kind {kind_histogram(records.values())}", flush=True)
+
+    def cache_ply(k):
+        if stem[k] not in ply:
+            return None
+        with open(os.path.join(cache_dir, "ply", stem[k] + ".ply"), "rb") as f:
+            return f.read()
+
+    differ = [stem[k] for k in agreed if plys.get(stem[k]) != cache_ply(k)]
+    print(f"[5] predict --reconstruct against the wireframe command line: the PLYs of the "
+          f"{len(agreed)} records whose faces agree byte-equal, except {differ}", flush=True)
+    if differ:
+        fail("predict --reconstruct and the wireframe command line wrote different PLYs")
+    cores = len(os.sched_getaffinity(0))
+    with ProcessPoolExecutor(cores, mp_context=multiprocessing.get_context("spawn")) as pool:
+        check_lifted("the causal_cache test's lift", cache_dir, pool)
+        oracle = run_oracle_lift(tmp, syn, pool, cores)
+    return {"predict_decode_seconds": float(decoded.group(1)),
+            "predict_lift_seconds": st["lift_seconds"],
+            "lift_cli_seconds": {"ply": ply_s, "obj": obj_s},
+            "oracle_lift": oracle}
 
 
 def run_cli_phase(train_rates):
@@ -1528,19 +1788,8 @@ def run_cli_phase(train_rates):
         if not same:
             fail("the exported Lightning checkpoint decodes differently")
 
-        # predict: the test split's wireframes through tools/predict
-        pred_in = os.path.join(tmp, "pred_in", "json")
-        os.makedirs(pred_in)
-        for name in fused:
-            shutil.copy(os.path.join(syn, "json", name), pred_in)
-        _, st, _ = run_cli(tmp, "predict", "faceformer_tpu_torch.tools.predict", "--config",
-                           CLI_CONFIG, "--ckpt", xckpt, "--root", os.path.dirname(pred_in))
-        preds = read_records(os.path.join(os.path.dirname(pred_in), "pred", "json"),
-                             CLI_SPLIT[2])
-        agree = float(np.mean([json.loads(preds[k])["pred_faces"]
-                               == json.loads(cache[k])["pred_faces"] for k in preds]))
-        print(f"[5] predict: share of JSONs whose pred_faces equal the causal_cache test's "
-              f"{agree:.4f}", flush=True)
+        # predict --reconstruct, the reconstruction command lines, the oracle lift
+        lift_numbers = run_lift_phase(tmp, syn, xckpt, cache, log("test-causal_cache"))
 
         t2 = timing[1]
         numbers = {
@@ -1563,6 +1812,7 @@ def run_cli_phase(train_rates):
             "launches": {"fit": {k: v for k, v in fit_stats["launches"].items() if v},
                          **{k: {n: c for n, c in v[2]["launches"].items() if c}
                             for k, v in tests.items()}},
+            **lift_numbers,
         }
         print(f"[5] cli numbers on {nvidia_smi()}: {json.dumps(numbers)}", flush=True)
     print(f"[5] the command-line phase took {time.perf_counter() - t_phase:.1f} s", flush=True)

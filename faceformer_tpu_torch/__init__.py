@@ -13,7 +13,7 @@ the CPU; without a card they raise.
 
 Ported so far (both models, serving and training):
   - config, post_processing, geometry/ (fixtures and solids included):
-    copies of the JAX package's numpy modules
+    copies of the JAX package's numpy modules (all but geometry/native)
   - data/: packing (both label layouts), batching, ABCDataset,
     ABCDatasetParallel
   - models/: layers, embedding, encoder pass, SurfaceFormer (flat),
@@ -24,8 +24,12 @@ Ported so far (both models, serving and training):
   - decode: greedy_decode_parallel (reference, causal_cache, fused) and
     greedy_decode_single (reference, causal_cache)
   - train/: loss, metrics, step, logging, checkpoints, the Harness
-  - main (``python -m faceformer_tpu_torch.main``), tools/predict and
-    tools/synthetic_data: the command lines
+  - main (``python -m faceformer_tpu_torch.main``), tools/predict (with
+    ``--reconstruct``) and tools/synthetic_data: the command lines
+  - reconstruction/ (io3d, lp, runner, wireframe, mesh) and
+    geometry/circles, geometry/loops' cycle assembly: the lift of predicted
+    faces to PLY wireframes and OBJ meshes, host code (numpy and scipy), with
+    ``python -m faceformer_tpu_torch.reconstruction.{wireframe,mesh}``
 """
 
 __version__ = "0.1.0"

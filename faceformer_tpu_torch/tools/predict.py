@@ -8,11 +8,14 @@ rows parsed at their first face-type token, or (T,) flat grids split at SEP
 coedge mapping and the majority vote on types.
 
     python -m faceformer_tpu_torch.tools.predict --config configs/ours.yml \
-        --ckpt <checkpoint> --root <dir with json/*.json> [--out DIR] [--device cpu]
+        --ckpt <checkpoint> --root <dir with json/*.json> [--out DIR] [--device cpu] \
+        [--reconstruct]
 
 writes <out>/json/<id>.json with {edges, dominant_directions, pred_faces,
-label_faces=[]}. The checkpoint is one the port wrote or a reference
-.ckpt/.pt/.pth file.
+label_faces=[]}, and with --reconstruct also <out>/ply/<id>.ply (lifted
+serially in this process: a fork after the card's context exists is
+unsafe). The checkpoint is one the port wrote or a reference .ckpt/.pt/.pth
+file.
 """
 
 from __future__ import annotations
@@ -75,14 +78,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--out", default=None,
                         help="output dir (default <root>/pred)")
     parser.add_argument("--reconstruct", action="store_true",
-                        help="also lift predictions to PLY wireframes (not ported)")
+                        help="also lift predictions to PLY wireframes")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: the card)")
     args = parser.parse_args(argv)
-    if args.reconstruct:
-        raise NotImplementedError(
-            "--reconstruct needs reconstruction/, which the port has not copied yet "
-            "(ROADMAP.md Queue 1 item 9)")
 
     cfg = load_config(args.config)
     harness = Harness(cfg, device=args.device)
@@ -112,6 +111,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         }
         with open(os.path.join(out_dir, "json", f"{name}.json"), "w") as f:
             json.dump(record, f, cls=NumpyJSONEncoder)
+
+    if args.reconstruct:
+        from faceformer_tpu_torch.reconstruction.wireframe import reconstruct_file
+
+        os.makedirs(os.path.join(out_dir, "ply"), exist_ok=True)
+        done = sum(reconstruct_file(name, out_dir) for name in names)
+        print(f"reconstructed {done}/{len(names)} wireframes -> {out_dir}/ply")
 
 
 if __name__ == "__main__":

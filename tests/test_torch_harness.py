@@ -399,6 +399,8 @@ def test_lightning_ckpt_through_both_command_lines(tmp_path, monkeypatch, tiny_m
     assert len(preds) == 10
     for name, data in ours.items():  # the test split's faces again
         assert json.loads(preds[name])["pred_faces"] == json.loads(data)["pred_faces"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_predict.main(["--config", str(yml), "--ckpt", str(ckpt), "--root", str(root),
-                           "--device", "cpu", "--reconstruct"])
+    # --reconstruct lifts the same predictions to PLYs beside them
+    port_predict.main(["--config", str(yml), "--ckpt", str(ckpt), "--root", str(root),
+                       "--device", "cpu", "--reconstruct"])
+    assert read_dir(root / "pred" / "json") == preds
+    assert os.path.isdir(root / "pred" / "ply")

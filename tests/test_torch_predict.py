@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from faceformer_tpu.config import Config, DecodeConfig, config_to_dict
+from faceformer_tpu.config import Config, DecodeConfig, ModelConfig, config_to_dict
 from faceformer_tpu.data.batching import collate as jax_collate
 from faceformer_tpu.data.dataset import ABCDatasetParallel
 from faceformer_tpu.data.packing import pack_input_edges as jax_pack
@@ -16,10 +16,12 @@ from faceformer_tpu.decode import greedy_decode_parallel as jax_decode
 from faceformer_tpu.geometry.fixtures import random_sample
 from faceformer_tpu.train.metrics import FaceMetrics as JaxFaceMetrics
 from faceformer_tpu_torch.config import config_from_dict
+from faceformer_tpu_torch.geometry.fixtures import random_sample as port_random_sample
 from faceformer_tpu_torch.tools.predict import predict_faces
 from faceformer_tpu_torch.train.metrics import FaceMetrics
 
 from torch_port_helpers import jax_params, port_model, torch_fp32_single_thread  # noqa: F401
+from torch_recon_helpers import jax_record
 
 
 @pytest.fixture(scope="module")
@@ -71,8 +73,8 @@ def test_face_metrics_copy_matches_jax(tiny_model_cfg, samples):
 
 
 def test_chip_smoke_helpers(tiny_model_cfg):
-    """chip_smoke.py's seeded wireframes pack and decode on the CPU, and its
-    profiler busy-time union."""
+    """chip_smoke.py's seeded wireframes pack and decode on the CPU, its
+    profiler busy-time union, and [5]'s oracle records and kind histogram."""
     import importlib.util
     import os
 
@@ -92,3 +94,19 @@ def test_chip_smoke_helpers(tiny_model_cfg):
     model = port_model(tiny_model_cfg, jax_params(tiny_model_cfg, seed=1))
     faces = predict_faces(model, cfg, a, device="cpu", early_stop=False)
     assert len(faces) == 3
+
+    # [5]'s oracle records (label faces through the port's packing and
+    # metric engine) equal the JAX package's; its histogram of face kinds
+    big = config_from_dict(config_to_dict(Config(model=ModelConfig(num_lines=216,
+                                                                   max_face_length=37))))
+    engine = FaceMetrics(big.post_process, big.model.token)
+    rng = np.random.default_rng(2)
+    solids = [port_random_sample(rng, profile="rich") for _ in range(4)]
+    records = [smoke.oracle_record(s, engine, big.model) for s in solids]
+    assert records == [jax_record(s) for s in solids]
+    assert all(r["pred_faces"] for r in records)
+    hist = smoke.kind_histogram(records)
+    assert sum(hist.values()) == 4 and "plane" in ",".join(hist)
+    assert smoke.kind_histogram([{"pred_faces": []}, {"pred_faces": [(0, [1]), (2, [3])]},
+                                 {"pred_faces": [(1, [2]), (1, [4])]}, {"pred_faces": []}]) == {
+        "cylinder": 1, "empty": 2, "other+plane": 1}
