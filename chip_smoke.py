@@ -87,7 +87,28 @@ Phases (each prints one or more lines; any failure exits non-zero):
      versions', bf16 grids parting only at near-ties); the command line
      (a 350-solid direction-token corpus, one epoch of fit with validation
      and a checkpoint, test with causal_cache, predict on four wireframes);
-  7. one JSON summary of the kernels, the card line, and the result line.
+     its profiled causal_cache decode runs the first FLAT_PROFILE_STEPS
+     steps;
+  7. ranks (parallel/mesh.py), the remat policies and tools.profile:
+     (a) two gloo ranks on the one card, started by ``parallel.mesh.spawn``,
+     against one rank at the `ours` width in fp32 (dropout 0, remat full,
+     global batch 32, 2 Adam steps): losses and parameters within gates set
+     from the fp32 readings, planted faults (no all-reduce; DDP's mean of
+     the ranks' means) read beside them, and the gradient all-reduce's ms;
+     (b) ``main ... trainer.num_devices 2`` on [5]'s corpus: one epoch with
+     validation and a checkpoint, then the checkpoint tested with the fused
+     engine in fp32 at two ranks and at one (36 JSONs byte-equal, the
+     metrics equal to their means over the JSONs, one writer, K2, K3, K1
+     and K4 launched on each rank), fit samples/s beside [5]'s; (c) the
+     nccl process group and its all-reduces at world 1 against no process
+     group; (d) each remat policy (off, full, dots, attn, attn_ffn) at N=32
+     in bf16 with dropout: samples/s, peak memory, K2 and K3 launches, and
+     in fp32 at N=2 every gradient against full's; (e) ``tools.profile``
+     for the fused decode and the training step at batch 8: a trace that
+     gives device time, by the wrapper that launched it, to K2 and K4, or
+     K2 and K3, and none to K1 in the fused decode (K4's attention and
+     pointer phases count as K4's);
+  8. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
@@ -107,6 +128,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -1116,11 +1138,11 @@ def training_batch(rng, samples, mc, dev):
     return {k: torch.as_tensor(v).to(dev) for k, v in collate(packed).items()}
 
 
-def expect_launches(what, fwd, bwd):
+def expect_launches(what, fwd, bwd, tag="[3]"):
     from faceformer_tpu_torch import ops
 
     got = (ops.LAUNCHES["flash_fwd"], ops.LAUNCHES["flash_bwd"])
-    print(f"[3] train {what}: launches flash_fwd {got[0]} (expected {fwd}), flash_bwd "
+    print(f"{tag} train {what}: launches flash_fwd {got[0]} (expected {fwd}), flash_bwd "
           f"{got[1]} (expected {bwd})", flush=True)
     if got != (fwd, bwd) or 0 in got:
         fail(f"train {what}: flash launches {got}, the configuration implies {(fwd, bwd)}")
@@ -1292,13 +1314,7 @@ def run_training(cfg, rng, seed, samples, dev):
     if not bool(torch.isfinite(loss)):
         fail("train: non-finite loss with remat")
     rates["remat full"] = measure("remat full")
-    model.cfg = dataclasses.replace(mc, remat=True, remat_policy="attn")
-    try:
-        train_step(model, optimizer, batch, dgen, tcfg)
-    except NotImplementedError as e:
-        print(f"[3] train remat_policy 'attn' refused: {e}", flush=True)
-    else:
-        fail("a named remat policy ran as if it were ported")
+    model.cfg = mc
     return main_launches, rates
 
 
@@ -1336,12 +1352,17 @@ CLI_AGREE_MIN = 0.9
 # Runs in each subprocess: counts set to 0, one module's command line, then
 # the counts, the peak device memory and the host seconds spent in
 # reconstruction.wireframe.reconstruct_file (predict --reconstruct's lift) on
-# a line of their own.
+# a line of their own. The ranks a multi-rank command line starts each
+# print theirs (``counted_rank``).
 CLI_WRAPPER = """
 import json, runpy, sys, time
 import torch
+import chip_smoke
 from faceformer_tpu_torch import ops
+from faceformer_tpu_torch.parallel import mesh
 ops.reset_launches()
+spawn = mesh.spawn
+mesh.spawn = lambda size, fn, *args: spawn(size, chip_smoke.counted_rank, fn, *args)
 sys.argv = sys.argv[1:]
 lift = [0.0]
 if "--reconstruct" in sys.argv:
@@ -1626,11 +1647,11 @@ def run_lift_phase(tmp, syn, ckpt, cache, cache_dir):
             "oracle_lift": oracle}
 
 
-def run_cli_phase(train_rates):
-    """Generate the corpus, then fit, test, validate, resume and predict
-    through the port's command lines at the `ours` width (synthetic-big.yml),
-    each in a subprocess. Returns the kernels' launch counts summed over the
-    fit and the test runs."""
+def run_cli_phase(train_rates, syn):
+    """Fit, test, validate, resume and predict through the port's command
+    lines at the `ours` width (synthetic-big.yml) on the corpus ``syn``
+    (``make_cli_corpus``), each in a subprocess. Returns the kernels' launch
+    counts summed over the fit and the test runs, and the phase's numbers."""
     import collections
 
     import torch
@@ -1642,17 +1663,6 @@ def run_cli_phase(train_rates):
     total = collections.Counter()
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        syn = os.path.join(tmp, "syn")
-        run_cli(tmp, "synthetic_data", "faceformer_tpu_torch.tools.synthetic_data",
-                "--root", syn, *CLI_GEN)
-        split = []
-        for name in ("train.txt", "valid.txt", "test.txt"):
-            with open(os.path.join(syn, name)) as f:
-                split.append(sum(1 for line in f if line.strip()))
-        print(f"[5] corpus: {CLI_NUM} rich solids, split train/valid/test {split}", flush=True)
-        if tuple(split) != CLI_SPLIT:
-            fail(f"corpus split {split}, expected {CLI_SPLIT}")
-
         base = ("root_dir", syn, "trainer.name", "smoke")
 
         def log(version):
@@ -1816,7 +1826,23 @@ def run_cli_phase(train_rates):
         }
         print(f"[5] cli numbers on {nvidia_smi()}: {json.dumps(numbers)}", flush=True)
     print(f"[5] the command-line phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(total)
+    return dict(total), numbers
+
+
+def make_cli_corpus(root: str) -> str:
+    """[5]'s corpus (``tools.synthetic_data`` with CLI_GEN) under ``root``,
+    which [7] trains on again. Returns its directory."""
+    syn = os.path.join(root, "syn")
+    run_cli(root, "synthetic_data", "faceformer_tpu_torch.tools.synthetic_data",
+            "--root", syn, *CLI_GEN)
+    split = []
+    for name in ("train.txt", "valid.txt", "test.txt"):
+        with open(os.path.join(syn, name)) as f:
+            split.append(sum(1 for line in f if line.strip()))
+    print(f"[5] corpus: {CLI_NUM} rich solids, split train/valid/test {split}", flush=True)
+    if tuple(split) != CLI_SPLIT:
+        fail(f"corpus split {split}, expected {CLI_SPLIT}")
+    return syn
 
 
 # ---------------------------------------------------------------------------
@@ -2155,6 +2181,12 @@ def run_flat_training(model, cfg, batch, seed):
 FLAT_OWN_MIN = 1e-3
 FLAT_TIE_MAX = 0.3
 FLAT_DIFF_MAX = 1.0
+# steps of the flat causal_cache decode that [6] profiles (of
+# label_seq_length - 1 = 511): reading back the profiler's events of a
+# whole decode (~295,000 kernels and as many host ops) took ~160 s of [6]
+# on the H100's host, and of 128 steps ~43 s; the depth cut to make room
+# for [7]. The timed decode and every check still run all 511 steps
+FLAT_PROFILE_STEPS = 32
 
 
 def flat_replay(model, mc, batch, forced, mode, impl):
@@ -2300,10 +2332,12 @@ def run_flat_serving(model, mc, samples, dev):
     steps): causal_cache timed at N = 32 (tokens/s, launches, one profiled
     decode), reference at N = 4; each engine's grid through the kernels
     against its grid through the plain versions, equal in fp32 at N = 4,
-    and in bf16 parting only at near-ties (``flat_partings``). Returns
-    the launches of the timed decodes."""
+    and in bf16 parting only at near-ties (``flat_partings``). The profiled
+    decode runs the first FLAT_PROFILE_STEPS steps. Returns the launches of
+    the timed decodes."""
     import torch
     from faceformer_tpu_torch import ops
+    from faceformer_tpu_torch.decode import greedy_decode_single
 
     steps = mc.label_seq_length - 1
     launches = {}
@@ -2324,11 +2358,16 @@ def run_flat_serving(model, mc, samples, dev):
               f"tokens/s={n * steps / dt:.1f}, {dt / steps * 1e3:.3f} ms a step; launches "
               f"{json.dumps({k: v for k, v in launches[mode].items() if v})}", flush=True)
         if mode == "causal_cache":
-            profile_call(f"flat engine={mode} N={n}", lambda: model.forward_eval(
-                batch, precision="bf16", mode=mode, early_stop=False), top=8)
+            cut = dataclasses.replace(mc, label_seq_length=FLAT_PROFILE_STEPS + 1)
+            profile_call(f"flat engine={mode} N={n}, its first {FLAT_PROFILE_STEPS} steps",
+                         lambda: greedy_decode_single(model, cut, batch, precision="bf16",
+                                                      mode=mode, early_stop=False), top=8)
+        t1 = time.perf_counter()
         plain = model.forward_eval(batch, precision="bf16", mode=mode, early_stop=False,
                                    impl="plain")["predict"]
+        t2 = time.perf_counter()
         found, stats = flat_partings(model, mc, batch, grid, plain, mode)
+        t3 = time.perf_counter()
         print(f"[6] flat engine={mode} bf16 kernels vs plain: cell agreement "
               f"{float((grid == plain).float().mean()):.6f}, {len(found)} of {n} rows part; "
               f"both replays write their engine's grids; at each parting the kernels' and "
@@ -2351,7 +2390,9 @@ def run_flat_serving(model, mc, samples, dev):
                                         impl=impl)["predict"] for impl in ("auto", "plain")}
         same = torch.equal(g32["auto"], g32["plain"])
         print(f"[6] flat engine={mode} fp32 N=4: grid through the kernels equals the plain "
-              f"versions' {same}", flush=True)
+              f"versions' {same}; seconds: the timed and profiled decodes {t1 - t0:.1f}, the "
+              f"plain bf16 decode {t2 - t1:.1f}, the two replays {t3 - t2:.1f}, the fp32 "
+              f"grids {time.perf_counter() - t3:.1f}", flush=True)
         if not same:
             fail(f"flat {mode} fp32: the kernels' grid differs from the plain versions'")
     return launches
@@ -2559,6 +2600,498 @@ def run_flat_phase(seed, rng, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: ranks (parallel/mesh.py), the remat policies, tools.profile
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 2  # Adam steps of (a)
+DP_LR = 1e-4
+# (a)'s gates, set from the fp32 readings on the H100 (PERF.md): the
+# two-rank losses within DP_LOSS_MAX of the one-rank ones, relative; the
+# parameter updates within DP_UPDATE_MAX of each other, as ||p2 - p1|| /
+# ||p1 - p0|| over every leaf but the attention key biases (their gradient
+# is 0 but for rounding, so Adam's first update there is +-lr by the sign of
+# rounding noise in either run). Planted faults are read beside them.
+# Readings (NVIDIA H100 80GB HBM3, 700 W): loss 2.7e-6; update distance
+# 1.8e-3, and 2.2e-3 between two single-process runs ([7] (c), the
+# embedding gradient's atomic adds); the faults 0.052 and 0.33.
+DP_LOSS_MAX = 1e-5
+DP_UPDATE_MAX = 1e-2
+REMAT_POLICIES = ("off", "full", "dots", "attn", "attn_ffn")
+
+
+def dp_setup(seed, dev, remat=True, config="configs/ours.yml"):
+    """[7] (a)'s configuration, model and batch at the `ours` width: fp32,
+    dropout 0, remat full (fp32 at N = 32 without remat would not fit
+    beside a second rank), lr DP_LR; 32 seeded wireframes with seeded face
+    loops. The same in every process that calls it."""
+    import torch
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+    from faceformer_tpu_torch.params import jitter_affine_
+
+    cfg = load_config(config)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=0.0, remat=remat, remat_policy="full"),
+        trainer=dataclasses.replace(cfg.trainer, precision="fp32", lr=DP_LR,
+                                    scheduled_sampling=0.0))
+    gen = torch.Generator().manual_seed(seed + 7)
+    model = SurfaceFormerParallel(cfg.model, generator=gen, device=dev)
+    jitter_affine_(model, gen)
+    rng = np.random.default_rng(seed + 7)
+    batch = training_batch(rng, random_wireframes(rng, 32), cfg.model, dev)
+    return cfg, model, batch
+
+
+def dp_params(model) -> dict:
+    return {name: p.detach().clone() for name, p in model.named_parameters()}
+
+
+def dp_steps(model, cfg, batch, world=None):
+    from faceformer_tpu_torch.train.step import make_optimizer, train_step
+
+    optimizer = make_optimizer(model, cfg.trainer)
+    return [float(train_step(model, optimizer, batch, None, cfg, world=world)[0])
+            for _ in range(DP_STEPS)]
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dp_rank(seed: int, out_dir: str, device: str = "cuda",
+            config: str = "configs/ours.yml") -> None:
+    """A rank of [7] (a), started by ``parallel.mesh.spawn``: DP_STEPS steps
+    on rows r, r + W, ... of the batch; then the gradient all-reduce alone,
+    timed; then the same steps under two planted faults (each rank on its
+    own token mean with no all-reduce; DDP's mean of the ranks' means)."""
+    import torch
+    from faceformer_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = mesh.make_mesh(2, device)
+    cfg, model, batch = dp_setup(seed, world.device, config=config)
+    rows = {k: v[world.rank::world.size].contiguous() for k, v in batch.items()}
+    mesh.replicated(world, model)
+    init = dp_params(model)
+    out = {"rank": world.rank, "backend": world.backend, "rows": len(rows["label"]),
+           "losses": dp_steps(model, cfg, rows, world)}
+    out["params"] = {k: v.cpu() for k, v in dp_params(model).items()}
+    grads = [p.grad for p in model.parameters()]
+    out["allreduce_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    mesh.all_reduce_(world, grads)  # warm
+    sync(world.device)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mesh.all_reduce_(world, grads)
+    sync(world.device)
+    out["allreduce_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+
+    real = mesh.all_reduce_
+
+    def planted(world_, tensors, average):
+        # the step's first all-reduce carries the label-token count alone:
+        # left out, each rank divides by its own count (its own token mean)
+        if len(tensors) == 1 or not average:
+            return
+        real(world_, tensors)
+        for t in tensors:
+            t /= world_.size
+
+    out["faults"] = {}
+    for fault, average in (("no all-reduce", False), ("mean of the ranks' means", True)):
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(init[name])
+        mesh.all_reduce_ = (lambda w, t, a=average: planted(w, t, a))
+        try:
+            dp_steps(model, cfg, rows, world)
+        finally:
+            mesh.all_reduce_ = real
+        out["faults"][fault] = {k: v.cpu() for k, v in dp_params(model).items()}
+    torch.save(out, os.path.join(out_dir, f"rank{world.rank}.pt"))
+
+
+def dp_distance(got: dict, want: dict, init: dict) -> float:
+    """||got - want|| / ||want - init|| over every leaf but the attention
+    key biases."""
+    num = den = 0.0
+    for name, w in want.items():
+        if name.endswith("attn.k.bias"):
+            continue
+        num += float((got[name].double() - w.double()).pow(2).sum())
+        den += float((w.double() - init[name].double()).pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def run_dp_ranks(seed: int, device: str = "cuda", config: str = "configs/ours.yml") -> None:
+    """[7] (a): two ranks on the one card (gloo, started through
+    ``parallel.mesh.spawn``) against one rank, fp32."""
+    import torch
+    from faceformer_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    cfg, model, batch = dp_setup(seed, torch.device(device), config=config)
+    init = {k: v.cpu() for k, v in dp_params(model).items()}
+    want_losses = dp_steps(model, cfg, batch)
+    want = {k: v.cpu() for k, v in dp_params(model).items()}
+    del model, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
+        t1 = time.perf_counter()
+        mesh.spawn(2, dp_rank, seed, out_dir, device, config)
+        ranks_s = time.perf_counter() - t1
+        got = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in (0, 1)]
+    r0 = got[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want_losses))
+    same_ranks = all(torch.equal(r0["params"][k], got[1]["params"][k]) for k in want)
+    dist = dp_distance(r0["params"], want, init)
+    faults = {name: dp_distance(p, want, init) for name, p in r0["faults"].items()}
+    keys = {k: float((r0["params"][k] - want[k]).abs().max()) for k in want
+            if k.endswith("attn.k.bias")}
+    print(f"[7] (a) 2 ranks on one card, backend {r0['backend']}, {r0['rows']} rows a rank, "
+          f"against 1 rank at N=32: fp32 `ours` width, dropout 0, remat full, {DP_STEPS} Adam "
+          f"steps at lr {DP_LR}: losses {r0['losses']} vs {want_losses} (largest relative "
+          f"difference {loss_err:.3g}, gate {DP_LOSS_MAX}); the two ranks' parameters "
+          f"bitwise equal: {same_ranks}; update distance ||p2 - p1|| / ||p1 - p0|| {dist:.3g} "
+          f"(gate {DP_UPDATE_MAX}); planted faults: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in faults.items())
+          + f"; attention key biases (left out) differ by up to {max(keys.values()):.3g}; the "
+          f"gradient all-reduce {r0['allreduce_bytes']} B a step through gloo: "
+          f"{r0['allreduce_ms']:.2f} ms; ranks {ranks_s:.1f} s, (a) "
+          f"{time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if loss_err > DP_LOSS_MAX or not same_ranks or dist > DP_UPDATE_MAX:
+        fail("[7] (a): two ranks do not train as one rank does")
+    if min(faults.values()) <= DP_UPDATE_MAX:
+        fail("[7] (a): a planted fault reads within the gate")
+
+
+def counted_rank(fn, *args) -> None:
+    """A rank of a multi-rank command line as ``run_cli``'s wrapper starts
+    it: the command's own rank function, then the rank's launches and peak
+    memory on a line of their own (RANK_STATS)."""
+    import torch
+    from faceformer_tpu_torch import ops
+
+    ops.reset_launches()
+    fn(*args)
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+    print("RANK_STATS " + json.dumps({"rank": int(os.environ["RANK"]), "launches": ops.LAUNCHES,
+                                      "max_memory_allocated": peak}), flush=True)
+
+
+def rank_stats(stdout: str, label: str, want) -> list:
+    """The RANK_STATS of both ranks of a command line; fails unless each
+    launched every kernel of ``want``."""
+    stats = sorted((json.loads(line[len("RANK_STATS "):]) for line in stdout.splitlines()
+                    if line.startswith("RANK_STATS ")), key=lambda s: s["rank"])
+    if [s["rank"] for s in stats] != [0, 1]:
+        fail(f"{label}: rank stats {stats}")
+    for s in stats:
+        if any(s["launches"][k] <= 0 for k in want):
+            fail(f"{label}: rank {s['rank']} launched {s['launches']}, expected {want}")
+    return stats
+
+
+def json_means(records: dict) -> dict:
+    """test_precision, test_recall and test_type_acc recomputed from the
+    prediction JSONs' canonical face sets (train/metrics.py's matching)."""
+    per = []
+    for blob in records.values():
+        rec = json.loads(blob)
+        pred = [(t, tuple(f)) for t, f in rec["pred_faces"]]
+        label = [(t, tuple(f)) for t, f in rec["label_faces"]]
+        tp = ttp = 0
+        for pt, pf in pred:
+            for lt, lf in label:
+                if pf == lf:
+                    tp += 1
+                    ttp += int(pt == lt)
+                    break
+        per.append((0, 0, 0) if not pred or not label
+                   else (tp / len(pred), tp / len(label), ttp / tp if tp else 0))
+    return {f"test_{k}": float(np.mean([p[i] for p in per]))
+            for i, k in enumerate(("precision", "recall", "type_acc"))}
+
+
+def run_dp_cli(syn: str, fit_rate_1rank: float) -> dict:
+    """[7] (b): ``main ... trainer.num_devices 2`` on [5]'s corpus (two gloo
+    ranks on one card, started by the command line itself): one epoch with
+    validation and a checkpoint; then the checkpoint tested with the fused
+    engine in fp32 at two ranks and at one. Returns the launches."""
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_cli_") as tmp:
+        base = ("root_dir", syn, "trainer.name", "smoke")
+
+        def log(version):
+            return os.path.join(tmp, "logs", "smoke", version)
+
+        out, _, wall = run_cli(tmp, "fit, 2 ranks, 1 epoch", MAIN, "--config-file", CLI_CONFIG,
+                               *base, "trainer.version", "dp2", "trainer.num_devices", "2",
+                               "trainer.max_epochs", "1", "trainer.checkpoint_period", "1",
+                               timeout=600, tag="[7] (b)")
+        backends = sorted({line.split("backend ")[1].split(",")[0] for line in out.splitlines()
+                           if line.startswith("rank ") and "backend " in line})
+        stats = rank_stats(out, "fit, 2 ranks", ("flash_fwd", "flash_bwd", "pointer_argmax"))
+        for s in stats:
+            total.update(s["launches"])
+        records = read_jsonl(os.path.join(log("dp2"), "metrics.jsonl"))
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        timing = [r for r in records if "epoch_train_seconds" in r]
+        steps = CLI_SPLIT[0] // 32
+        per_step = 6 + 2 * 6
+        files = sorted(os.listdir(log("dp2")))
+        print(f"[7] (b) fit 2 ranks: backend {backends}; {len(losses)} train_loss lines, "
+              f"{sum('valid_precision' in r for r in records)} validation; files {files}; "
+              f"checkpoints {sorted(os.listdir(os.path.join(log('dp2'), 'checkpoints')))}; "
+              f"launches a rank {[{k: v for k, v in s['launches'].items() if v} for s in stats]}; "
+              f"peak memory a rank {[s['max_memory_allocated'] for s in stats]}; fit "
+              f"samples/s {timing[0]['train_samples_per_s']:.2f} (two ranks, one card) against "
+              f"[5]'s one rank {fit_rate_1rank:.2f}; wall {wall:.1f} s", flush=True)
+        if (len(losses) != steps or not all(x is not None and np.isfinite(x) for x in losses)
+                or sum("valid_precision" in r for r in records) != 1 or len(timing) != 1
+                or sum(f.startswith("events.out.tfevents") for f in files) != 1
+                or not os.path.isfile(os.path.join(log("dp2"), "checkpoints", "last"))):
+            fail("[7] (b) fit 2 ranks: not one writer's logs of one epoch and its checkpoint")
+        if backends != ["gloo"]:
+            fail(f"[7] (b): backends {backends}, gloo expected for two ranks on one card")
+        for s in stats:
+            if s["launches"]["flash_bwd"] != steps * per_step:
+                fail(f"[7] (b) fit: rank {s['rank']} K3 launches {s['launches']['flash_bwd']}")
+
+        last = os.path.join(log("dp2"), "checkpoints", "last")
+        tests = {}
+        for ranks in (2, 1):
+            out, st, _ = run_cli(tmp, f"test last, fused fp32, {ranks} rank(s)", MAIN,
+                                 "--config-file", CLI_CONFIG, "--test_ckpt", last, *base,
+                                 "trainer.version", f"test-{ranks}", "trainer.num_devices",
+                                 str(ranks), "decode.mode", "fused", "decode.precision", "fp32",
+                                 tag="[7] (b)")
+            if ranks == 2:
+                for s in rank_stats(out, "test, 2 ranks", ("decode_step", "flash_fwd")):
+                    total.update(s["launches"])
+            else:
+                total.update(st["launches"])
+            with open(os.path.join(log(f"test-{ranks}"), "results.json")) as f:
+                tests[ranks] = (read_records(os.path.join(log(f"test-{ranks}"), "json"),
+                                             CLI_SPLIT[2]), json.load(f))
+        means = json_means(tests[2][0])
+        same = tests[2][0] == tests[1][0]
+        with open(os.path.join(log("test-2"), "metrics.jsonl")) as f:
+            writer_lines = len(f.readlines())
+        print(f"[7] (b) test fused fp32: 2 ranks {tests[2][1]}; 1 rank {tests[1][1]}; the "
+              f"{CLI_SPLIT[2]} JSONs byte-equal: {same}; their means {means}; the 2-rank "
+              f"test's metrics.jsonl lines {writer_lines}", flush=True)
+        if not same or writer_lines != 1 or tests[2][1]["num_samples"] != CLI_SPLIT[2]:
+            fail("[7] (b) test: two ranks and one rank disagree, or not one writer")
+        if any(abs(tests[2][1][k] - v) > 1e-12 for k, v in means.items()):
+            fail("[7] (b) test: the two-rank metrics are not the means over the JSONs")
+    print(f"[7] (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(total)
+
+
+def run_nccl_world_one(seed: int) -> None:
+    """[7] (c): one rank under a rank environment: the nccl process group and
+    its all-reduces, DP_STEPS fp32 steps at N=8, against the same steps with
+    no process group, held to (a)'s gates (the embedding gradient's atomic
+    adds may reorder sums between two runs)."""
+    import torch
+    import torch.distributed as dist
+    from faceformer_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    cfg, model, batch = dp_setup(seed, torch.device("cuda"), remat=False)
+    batch = {k: v[:8] for k, v in batch.items()}
+    init = dp_params(model)
+    runs = {}
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(mesh._free_port()))
+    for label in ("no process group", "nccl, world 1"):
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(init[name])
+        world = None
+        if label != "no process group":
+            os.environ.update(env)
+            world = mesh.make_mesh(0, "cuda")
+        try:
+            losses = dp_steps(model, cfg, batch, world)
+        finally:
+            if world is not None:
+                dist.destroy_process_group()
+                for key in env:
+                    del os.environ[key]
+        runs[label] = (losses, dp_params(model), None if world is None else world.backend)
+    (l0, p0, _), (l1, p1, backend) = runs.values()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+    dist_ = dp_distance(p1, p0, init)
+    print(f"[7] (c) nccl at world 1: backend {backend}; losses {l1} vs {l0} with no process "
+          f"group (largest relative difference {loss_err:.3g}, gate {DP_LOSS_MAX}); update "
+          f"distance {dist_:.3g} (gate {DP_UPDATE_MAX}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if backend != "nccl" or loss_err > DP_LOSS_MAX or dist_ > DP_UPDATE_MAX:
+        fail("[7] (c): the nccl path at world 1 does not train as the single-process step")
+
+
+def run_remat_policies(seed: int, rng) -> dict:
+    """[7] (d): each remat policy at the `ours` width, bf16, N=32, dropout
+    0.2: samples/s over 3 steps after 1 warm-up, peak memory, K2 and K3
+    launches; then every gradient through the kernels in fp32 at N=2
+    against ``full``'s. Returns samples/s by policy."""
+    import torch
+    from faceformer_tpu_torch import ops
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+    from faceformer_tpu_torch.params import jitter_affine_
+    from faceformer_tpu_torch.train.loss import pointer_cross_entropy
+    from faceformer_tpu_torch.train.step import make_optimizer, train_step
+
+    t0 = time.perf_counter()
+    cfg = load_config("configs/ours.yml")
+    mc = cfg.model
+    tcfg = dataclasses.replace(cfg, trainer=dataclasses.replace(
+        cfg.trainer, precision="bf16", lr=1e-4, scheduled_sampling=0.0))
+    per_step = mc.num_encoder_layers + 2 * mc.num_decoder_layers
+    gen = torch.Generator().manual_seed(seed + 9)
+    model = SurfaceFormerParallel(mc, generator=gen, device="cuda")
+    jitter_affine_(model, gen)
+    batch = training_batch(rng, random_wireframes(rng, 32), mc, torch.device("cuda"))
+    optimizer = make_optimizer(model, tcfg.trainer)
+    dgen = torch.Generator().manual_seed(seed + 10)
+    rates, peaks = {}, {}
+    for policy in REMAT_POLICIES:
+        model.cfg = dataclasses.replace(mc, remat=policy != "off",
+                                        remat_policy="full" if policy == "off" else policy)
+        torch.cuda.empty_cache()  # the last policy's cached blocks go; the warm-up refills
+        train_step(model, optimizer, batch, dgen, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            train_step(model, optimizer, batch, dgen, tcfg)
+        torch.cuda.synchronize()
+        rates[policy] = 3 * len(batch["label"]) / (time.perf_counter() - t1)
+        peaks[policy] = torch.cuda.max_memory_allocated()
+        # K2 runs again in the backward under every policy: its
+        # autograd.Function is opaque to the policy
+        fwd = (1 if policy == "off" else 2) * 3 * per_step
+        print(f"[7] (d) remat {policy}: samples/s={rates[policy]:.2f} "
+              f"max_memory_allocated={peaks[policy]}", flush=True)
+        expect_launches(f"remat {policy}, 3 bf16 steps, dropout {mc.dropout}", fwd,
+                        3 * per_step, tag="[7] (d)")
+    # the gradients in deterministic mode: the gathers' backward adds
+    # atomically otherwise, and two runs of one policy then part by ~1e-4 of
+    # a leaf's magnitude (a first reading on the H100)
+    small = {k: v[:2] for k, v in batch.items()}
+    grads = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # cuBLAS's workspace note, once an op
+            for run in ("full", "full again", "dots", "attn", "attn_ffn"):
+                model.cfg = dataclasses.replace(mc, dropout=0.0, remat=True,
+                                                remat_policy=run.split()[0])
+                model.zero_grad(set_to_none=True)
+                loss, _ = pointer_cross_entropy(model.forward_train(small, precision="fp32"),
+                                                mc.token)
+                loss.backward()
+                grads[run] = {k: p.grad.clone() for k, p in model.named_parameters()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # each leaf against its own largest magnitude; the attention key biases
+    # (a zero gradient but for rounding, as in [3]) by the absolute difference
+    worst, keys = {}, {}
+    for policy, g in grads.items():
+        if policy == "full":
+            continue
+        full = grads["full"]
+        worst[policy] = max(float((g[k] - full[k]).abs().max() / full[k].abs().max())
+                            for k in g if not k.endswith("attn.k.bias"))
+        keys[policy] = max(float((g[k] - full[k]).abs().max()) for k in g
+                           if k.endswith("attn.k.bias"))
+    model.cfg = mc
+    print(f"[7] (d) fp32 N=2 dropout 0, every gradient through the kernels against full's: "
+          f"largest relative difference per leaf {worst} (gate 1e-6), key biases {keys} "
+          f"(gate 1e-5); bf16 N=32 samples/s {rates}, peak bytes {peaks}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if max(worst.values()) > 1e-6 or max(keys.values()) > 1e-5:
+        fail("[7] (d): a remat policy's gradients differ from full's")
+    return rates
+
+
+def run_profile_tool() -> dict:
+    """[7] (e): ``tools.profile`` at the `ours` width, batch 8, 3 iterations:
+    the fused decode and the training step. The trace must give device time
+    to each kernel of the run, by the wrapper that launched it; in the
+    fused decode K4's share must hold its attention and pointer phases,
+    and K1, which that engine does not call, must get none. Returns
+    ms/iter."""
+    from faceformer_tpu_torch.tools.profile import device_us_by_kernel
+
+    ms = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        for what, mode, want in (("decode", "fused", ("K2 flash forward",
+                                                      "K4 fused decode step")),
+                                 ("train", "causal_cache", ("K2 flash forward",
+                                                            "K3 flash backward"))):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "faceformer_tpu_torch.tools.profile", "--what", what,
+                 "--mode", mode, "--config", os.path.join(REPO, "configs", "ours.yml"),
+                 "--batch", "8", "--iters", "3", "--out", tmp], cwd=tmp, env=repo_env(),
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+                fail(f"[7] (e) tools.profile --what {what}: exit code {proc.returncode}")
+            with open(os.path.join(tmp, f"{what}.json")) as f:
+                events = json.load(f)["traceEvents"]
+            by_kernel = device_us_by_kernel(events)
+            # K4's C entry runs its attention and pointer phases on K2's and
+            # K1's device code; those must count as K4's, not K1's or K2's
+            k4_phase_us = sum(ev["dur"] for ev in events if ev.get("cat") == "kernel"
+                              and any(m in ev.get("name", "") for m in
+                                      ("ff::attention", "ff::pointer_argmax")))
+            line = [ln for ln in proc.stdout.splitlines() if ln.startswith(f"{what}: ")][0]
+            ms[what] = float(line.split("(")[1].split(" ms/iter")[0])
+            shares = {k: round(v / 1e3, 3) for k, v in sorted(by_kernel.items())}
+            print(f"[7] (e) tools.profile --what {what} --mode {mode}: {line}; device ms by "
+                  f"launching wrapper {json.dumps(shares)}; "
+                  f"ff::attention and ff::pointer_argmax kernels {k4_phase_us / 1e3:.3f} ms; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for ln in proc.stdout.splitlines():
+                if ln.startswith(("device ms", "  ")):
+                    print(f"[7] (e)   {ln.strip()}", flush=True)
+            if not all(by_kernel.get(k, 0.0) > 0 for k in want):
+                fail(f"[7] (e) tools.profile --what {what}: the trace gives no device time to "
+                     f"one of {want}: {by_kernel}")
+            if what == "decode" and ("K1 pointer argmax" in by_kernel
+                                     or by_kernel["K4 fused decode step"]
+                                     + by_kernel["K2 flash forward"] < k4_phase_us):
+                fail("[7] (e) tools.profile --what decode --mode fused: K4's attention and "
+                     "pointer phases are not counted as K4's")
+    return ms
+
+
+def run_ranks_phase(seed: int, rng, syn: str, fit_rate_1rank: float) -> dict:
+    """Phase 7. Returns the launches of (b)'s command lines, every rank's."""
+    t_phase = time.perf_counter()
+    run_dp_ranks(seed)
+    launches = run_dp_cli(syn, fit_rate_1rank)
+    run_nccl_world_one(seed)
+    run_remat_policies(seed, rng)
+    run_profile_tool()
+    print(f"[7] the ranks, remat and profiler phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2587,6 +3120,7 @@ def main() -> int:
     from faceformer_tpu_torch.ops import _build
     from faceformer_tpu_torch.params import jitter_affine_
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -2779,7 +3313,10 @@ def main() -> int:
     # its own; this process gives back the memory phases 3 and 4 cached
     del model, rows, memory, mask
     torch.cuda.empty_cache()
-    for k, v in run_cli_phase(train_rates).items():
+    corpus = tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_")  # [5] and [7]
+    syn = make_cli_corpus(corpus.name)
+    cli_launches, cli_numbers = run_cli_phase(train_rates, syn)
+    for k, v in cli_launches.items():
         total[k] += v
 
     # phase 6: the flat model at the synthetic-dirtok-big width
@@ -2810,7 +3347,14 @@ def main() -> int:
           f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
           f"({row['bound_by']}); launches {total['flash_bwd_tiled_tc']}", flush=True)
 
-    # phase 7
+    # phase 7: ranks, the remat policies, tools.profile
+    torch.cuda.empty_cache()
+    for k, v in run_ranks_phase(args.seed, rng, syn,
+                                cli_numbers["fit_samples_per_s_epoch2"]).items():
+        total[k] += v
+    corpus.cleanup()
+
+    # phase 8
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
@@ -2827,6 +3371,7 @@ def main() -> int:
                                        for label in ("flat-decoder-self", LONG_TIMED[0])}
     summary["kernels"][5]["shapes"] = {label: flat_rows["flash_bwd"][label]
                                        for label in ("flat-decoder-self", LONG_TIMED[0])}
+    print(f"[8] the script took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

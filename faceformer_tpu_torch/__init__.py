@@ -16,16 +16,18 @@ Ported so far (both models, serving and training):
     copies of the JAX package's numpy modules (all but geometry/native)
   - data/: packing (both label layouts), batching, ABCDataset,
     ABCDatasetParallel
-  - models/: layers, embedding, encoder pass, SurfaceFormer (flat),
-    SurfaceFormerParallel
+  - models/: layers (with every remat policy), embedding, encoder pass,
+    SurfaceFormer (flat), SurfaceFormerParallel
+  - parallel/: data parallelism over torch.distributed ranks
   - params: seeded init and the JAX parameter-tree bridge
   - ops/: pointer argmax, flash attention forward and backward (key-tiled
     past a block's shared memory), fused decode step
   - decode: greedy_decode_parallel (reference, causal_cache, fused) and
     greedy_decode_single (reference, causal_cache)
   - train/: loss, metrics, step, logging, checkpoints, the Harness
-  - main (``python -m faceformer_tpu_torch.main``), tools/predict (with
-    ``--reconstruct``) and tools/synthetic_data: the command lines
+  - main (``python -m faceformer_tpu_torch.main``, one rank or several),
+    tools/predict (with ``--reconstruct``), tools/synthetic_data and
+    tools/profile: the command lines
   - reconstruction/ (io3d, lp, runner, wireframe, mesh) and
     geometry/circles, geometry/loops' cycle assembly: the lift of predicted
     faces to PLY wireframes and OBJ meshes, host code (numpy and scipy), with

@@ -11,14 +11,24 @@ Flags go before the key/value overrides: everything after the first
 override is read as overrides. Runs on the card unless ``--device cpu``.
 Checkpoint paths ending in .ckpt/.pt/.pth are reference PyTorch
 checkpoints, converted on load; any other path is one the port wrote.
+
+``trainer.num_devices`` N > 1 runs N ranks (``parallel/mesh.py``): on one
+host this command starts them itself (0 means one a visible card; with
+``--device cpu``, N gloo ranks on the CPU); under ``torchrun`` it is one of
+the ranks torchrun started. A rank that fails ends the run with an error
+and no rank left running.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
+import torch.distributed as dist
+
 from faceformer_tpu_torch.config import load_config
+from faceformer_tpu_torch.parallel import mesh
 from faceformer_tpu_torch.train.logging import MetricsLogger
 from faceformer_tpu_torch.train.trainer import Harness
 
@@ -41,6 +51,20 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = get_parser().parse_args(argv)
     cfg = load_config(args.config_file, args.opts)
+    ranks = mesh.local_ranks(cfg.trainer.num_devices, args.device)
+    if ranks > 1 and "WORLD_SIZE" not in os.environ:
+        mesh.spawn(ranks, run, args)
+        return
+    try:
+        run(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(args: argparse.Namespace) -> None:
+    """The command on this process: the only one, or one of the ranks."""
+    cfg = load_config(args.config_file, args.opts)
     harness = Harness(cfg, device=args.device)
 
     if args.test_ckpt:
@@ -48,9 +72,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         harness.test(state["model"])
     elif args.valid_ckpt:
         state = harness.load(args.valid_ckpt)
-        logger = MetricsLogger(harness.log_dir)
+        logger = MetricsLogger(harness.log_dir) if harness.world.is_writer else None
         harness.validate(state["model"], logger=logger)
-        logger.close()
+        if logger is not None:
+            logger.close()
     elif args.resume_ckpt:
         state = harness.load(args.resume_ckpt)
         harness.fit(state)

@@ -21,10 +21,24 @@ Randomness is explicit, as ``rng`` is in JAX: a layer gets one integer seed
 per site (``seeds``), and each site makes its mask from its seed alone. No
 mask depends on a generator's state, so a layer that runs twice under remat
 draws the same masks. ``seeds=None`` is eval: nothing is dropped.
+
+Remat (``model.remat``) recomputes each layer in the backward pass, keeping
+what its policy names (JAX layers.py:475-506): "full" the layer's input
+only; "dots" every matrix product without batch dims (``aten.mm`` and
+``aten.addmm``: each linear's product, before its bias); "attn" the
+attention blocks' outputs, tagged "attn_out"; "attn_ffn" those and the
+FFN outputs, tagged "ffn_out". The tags are an identity op
+(``faceformer_tpu_torch::ckpt_name``, a copy, as a custom op may not alias
+its input) that a selective checkpoint's policy saves by name, as
+``jax.ad_checkpoint.checkpoint_name`` marks a value for JAX's; they are
+applied only under a named policy with gradients on. The flash kernels'
+``autograd.Function`` is opaque to the policy, so K2 runs again in the
+backward under every policy, as the Pallas call does under JAX's.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -32,7 +46,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from faceformer_tpu_torch.ops.flash import flash_attention, padding_mask_bias
 
@@ -138,6 +156,20 @@ def _sites(seeds: Optional[Sequence[int]], count: int):
     return tuple(seeds)
 
 
+@torch.library.custom_op("faceformer_tpu_torch::ckpt_name", mutates_args=())
+def _tag(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+_tag.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def _ckpt_name(x: torch.Tensor, name: str, save_names: Sequence[str]) -> torch.Tensor:
+    """Tag ``x`` for a named remat policy when the policy keeps ``name``;
+    else ``x`` itself."""
+    return _tag(x, name) if name in save_names else x
+
+
 def activation_fn(name: str):
     if name == "relu":
         return torch.relu
@@ -212,8 +244,9 @@ def multihead_attention(
 
 
 def _ffn(ffn: FeedForward, x: torch.Tensor, act, rate: float = 0.0,
-         seed: Optional[int] = None) -> torch.Tensor:
-    return linear(ffn.lin2, dropout(act(linear(ffn.lin1, x)), rate, seed))
+         seed: Optional[int] = None, save_names: Sequence[str] = ()) -> torch.Tensor:
+    return _ckpt_name(linear(ffn.lin2, dropout(act(linear(ffn.lin1, x)), rate, seed)),
+                      "ffn_out", save_names)
 
 
 def encoder_layer(
@@ -228,23 +261,26 @@ def encoder_layer(
     dropout_rate: float = 0.0,
     seeds: Optional[Sequence[int]] = None,
     impl: str = "auto",
+    save_names: Sequence[str] = (),
 ) -> torch.Tensor:
-    """One encoder block (reference: transformer.py:146-184)."""
+    """One encoder block (reference: transformer.py:146-184). ``save_names``:
+    the tags a named remat policy keeps."""
     act = activation_fn(activation)
     rate = dropout_rate
     s_attn, s1, s_ffn_in, s2 = _sites(seeds, ENCODER_SITES)
     attend = dict(key_padding_mask=key_padding_mask, dropout_rate=rate, seed=s_attn, impl=impl)
+
+    def attention(qk, value):
+        return _ckpt_name(multihead_attention(layer.self_attn, qk, qk, value, num_head, **attend),
+                          "attn_out", save_names)
+
     if normalize_before:
         x2 = layer_norm(layer.norm1, x)
-        qk = x2 + pos
-        sa = multihead_attention(layer.self_attn, qk, qk, x2, num_head, **attend)
-        x = x + dropout(sa, rate, s1)
+        x = x + dropout(attention(x2 + pos, x2), rate, s1)
         x2 = layer_norm(layer.norm2, x)
-        return x + dropout(_ffn(layer.ffn, x2, act, rate, s_ffn_in), rate, s2)
-    qk = x + pos
-    sa = multihead_attention(layer.self_attn, qk, qk, x, num_head, **attend)
-    x = layer_norm(layer.norm1, x + dropout(sa, rate, s1))
-    ff = _ffn(layer.ffn, x, act, rate, s_ffn_in)
+        return x + dropout(_ffn(layer.ffn, x2, act, rate, s_ffn_in, save_names), rate, s2)
+    x = layer_norm(layer.norm1, x + dropout(attention(x + pos, x), rate, s1))
+    ff = _ffn(layer.ffn, x, act, rate, s_ffn_in, save_names)
     return layer_norm(layer.norm2, x + dropout(ff, rate, s2))
 
 
@@ -264,10 +300,12 @@ def decoder_layer(
     dropout_rate: float = 0.0,
     seeds: Optional[Sequence[int]] = None,
     impl: str = "auto",
+    save_names: Sequence[str] = (),
 ) -> torch.Tensor:
     """One decoder block: self-attn, cross-attn to memory, FFN
     (reference: transformer.py:209-259). ``memory`` may carry a size-1
-    anchor axis against ``tgt`` (anchor-parallel decode)."""
+    anchor axis against ``tgt`` (anchor-parallel decode). ``save_names``:
+    the tags a named remat policy keeps."""
     act = activation_fn(activation)
     rate = dropout_rate
     s_sa, s1, s_ca, s2, s_ffn_in, s3 = _sites(seeds, DECODER_SITES)
@@ -275,53 +313,75 @@ def decoder_layer(
                    seed=s_sa, impl=impl)
     cross_kw = dict(key_padding_mask=memory_key_padding_mask, dropout_rate=rate, seed=s_ca,
                     impl=impl)
+
+    def self_attention(qk, value):
+        return _ckpt_name(multihead_attention(layer.self_attn, qk, qk, value, num_head,
+                                              **self_kw), "attn_out", save_names)
+
+    def cross_attention(q):
+        return _ckpt_name(multihead_attention(layer.cross_attn, q, memory + pos, memory,
+                                              num_head, **cross_kw), "attn_out", save_names)
+
     if normalize_before:
         t2 = layer_norm(layer.norm1, tgt)
-        qk = t2 + query_pos
-        sa = multihead_attention(layer.self_attn, qk, qk, t2, num_head, **self_kw)
-        tgt = tgt + dropout(sa, rate, s1)
+        tgt = tgt + dropout(self_attention(t2 + query_pos, t2), rate, s1)
         t2 = layer_norm(layer.norm2, tgt)
-        ca = multihead_attention(layer.cross_attn, t2 + query_pos, memory + pos, memory,
-                                 num_head, **cross_kw)
-        tgt = tgt + dropout(ca, rate, s2)
+        tgt = tgt + dropout(cross_attention(t2 + query_pos), rate, s2)
         t2 = layer_norm(layer.norm3, tgt)
-        return tgt + dropout(_ffn(layer.ffn, t2, act, rate, s_ffn_in), rate, s3)
-    qk = tgt + query_pos
-    sa = multihead_attention(layer.self_attn, qk, qk, tgt, num_head, **self_kw)
-    tgt = layer_norm(layer.norm1, tgt + dropout(sa, rate, s1))
-    ca = multihead_attention(layer.cross_attn, tgt + query_pos, memory + pos, memory,
-                             num_head, **cross_kw)
-    tgt = layer_norm(layer.norm2, tgt + dropout(ca, rate, s2))
-    ff = _ffn(layer.ffn, tgt, act, rate, s_ffn_in)
+        return tgt + dropout(_ffn(layer.ffn, t2, act, rate, s_ffn_in, save_names), rate, s3)
+    tgt = layer_norm(layer.norm1, tgt + dropout(self_attention(tgt + query_pos, tgt), rate, s1))
+    tgt = layer_norm(layer.norm2, tgt + dropout(cross_attention(tgt + query_pos), rate, s2))
+    ff = _ffn(layer.ffn, tgt, act, rate, s_ffn_in, save_names)
     return layer_norm(layer.norm3, tgt + dropout(ff, rate, s3))
 
 
-REMAT_POLICIES = ("full", "dots", "attn", "attn_ffn")
+# the tags each remat policy keeps ("dots" keeps matrix products instead)
+_SAVED_NAMES = {"full": (), "dots": (), "attn": ("attn_out",),
+                "attn_ffn": ("attn_out", "ffn_out")}
+REMAT_POLICIES = tuple(_SAVED_NAMES)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy_fn(remat_policy: str):
+    """The selective checkpoint policy of a named remat policy: save what it
+    keeps, recompute the rest."""
+    names = _SAVED_NAMES[remat_policy]
+    dots = remat_policy == "dots"
+
+    def policy(ctx, op, *args, **kwargs):
+        if (dots and op in _DOTS) or (op is torch.ops.faceformer_tpu_torch.ckpt_name.default
+                                      and args[1] in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 def _run_stack(layer_fn, layers, x: torch.Tensor, seeds, remat: bool, remat_policy: str):
-    """Apply ``layer_fn(layer, x, layer_seeds)`` over the stack. ``seeds``
-    holds one row of site seeds per layer, or is None (eval).
+    """Apply ``layer_fn(layer, x, layer_seeds, save_names)`` over the stack.
+    ``seeds`` holds one row of site seeds per layer, or is None (eval).
 
-    ``remat`` recomputes each layer in the backward pass and saves only the
-    layer boundary (the JAX package's "full" policy, layers.py:475-506). The
+    ``remat`` (with gradients on) runs each layer under
+    ``torch.utils.checkpoint``, saving what ``remat_policy`` keeps (the
+    module docstring) and recomputing the rest in the backward pass. The
     seeds are arguments of the layer, so the recomputation replays the same
-    dropout masks. The named policies that keep tagged block outputs
-    resident have no counterpart here yet."""
+    dropout masks."""
+    if remat and remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"model.remat_policy must be one of {sorted(REMAT_POLICIES)}, "
+                         f"got {remat_policy!r}")
+    remat = remat and torch.is_grad_enabled()
+    save_names = _SAVED_NAMES[remat_policy] if remat else ()
+    kwargs = {}
     if remat and remat_policy != "full":
-        if remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"model.remat_policy must be one of {sorted(REMAT_POLICIES)}, "
-                             f"got {remat_policy!r}")
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r} is not ported: only 'full' "
-            "(torch.utils.checkpoint around each layer) is")
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 remat_policy_fn(remat_policy))
     for i, layer in enumerate(layers):
         layer_seeds = None if seeds is None else seeds[i]
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(layer_fn, layer, x, layer_seeds, use_reentrant=False,
-                           preserve_rng_state=False)
+        if remat:
+            x = checkpoint(layer_fn, layer, x, layer_seeds, save_names, use_reentrant=False,
+                           preserve_rng_state=False, **kwargs)
         else:
-            x = layer_fn(layer, x, layer_seeds)
+            x = layer_fn(layer, x, layer_seeds, save_names)
     return x
 
 
@@ -343,10 +403,11 @@ def encoder_forward(
     """Full encoder stack + final norm in pre-LN (reference:
     transformer.py:62-83). ``seeds``: (layers, ENCODER_SITES) ints, or None."""
 
-    def fn(layer, x, layer_seeds):
+    def fn(layer, x, layer_seeds, save_names):
         return encoder_layer(layer, x, pos, key_padding_mask, num_head=num_head,
                              activation=activation, normalize_before=normalize_before,
-                             dropout_rate=dropout_rate, seeds=layer_seeds, impl=impl)
+                             dropout_rate=dropout_rate, seeds=layer_seeds, impl=impl,
+                             save_names=save_names)
 
     x = _run_stack(fn, encoder.layers, x, seeds, remat, remat_policy)
     if normalize_before:
@@ -377,13 +438,13 @@ def decoder_forward(
     pre/post-LN modes, reference model.py:42-43). ``seeds``: (layers,
     DECODER_SITES) ints, or None."""
 
-    def fn(layer, x, layer_seeds):
+    def fn(layer, x, layer_seeds, save_names):
         return decoder_layer(
             layer, x, memory, query_pos, pos, num_head=num_head,
             activation=activation, normalize_before=normalize_before,
             causal=causal, tgt_key_padding_mask=tgt_key_padding_mask,
             memory_key_padding_mask=memory_key_padding_mask,
-            dropout_rate=dropout_rate, seeds=layer_seeds, impl=impl)
+            dropout_rate=dropout_rate, seeds=layer_seeds, impl=impl, save_names=save_names)
 
     tgt = _run_stack(fn, decoder.layers, tgt, seeds, remat, remat_policy)
     return layer_norm(decoder.norm, tgt)

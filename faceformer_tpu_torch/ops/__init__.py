@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels for the port's hot ops, one module each.
 
 Every wrapper dispatches on the device of the tensors it is given: a CUDA
-tensor launches the CUDA kernel (built from ``csrc/`` at first use) or
-raises; a CPU tensor runs the module's plain PyTorch version. There is no
+tensor launches the CUDA kernel (built from ``csrc/`` at first use) inside
+``launching``, or raises; a CPU tensor runs the module's plain PyTorch
+version. There is no
 switch and no fallback. ``impl="plain"`` runs the plain version on any
 device, for comparisons.
 
@@ -19,6 +20,7 @@ its GEMMs); no main path calls them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"pointer_argmax": 0, "flash_fwd": 0, "flash_fwd_tiled_tc": 0,
@@ -26,9 +28,29 @@ LAUNCHES: Dict[str, int] = {"pointer_argmax": 0, "flash_fwd": 0, "flash_fwd_tile
                             "pointer_argmax_gather": 0, "decode_gemm": 0}
 
 
+# each launch runs inside a profiler range named RANGE + its LAUNCHES key
+RANGE = "ff.launch."
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def launching(name: str, device):
+    """The context of one launch by wrapper ``name`` for tensors on
+    ``device``: that card current, so the C entry's launches, attribute
+    settings and error checks go to the card that holds the pointers
+    whichever card the calling thread had current; a profiler range
+    ``RANGE + name``, by which ``tools.profile`` gives the wrapper the
+    device time of every kernel its C entry launched; and, where the block
+    raises nothing, one more launch counted under ``name``."""
+    import torch
+
+    with torch.profiler.record_function(RANGE + name), torch.cuda.device(device):
+        yield
+    LAUNCHES[name] += 1
 
 
 def use_kernel(impl: str, *tensors) -> bool:

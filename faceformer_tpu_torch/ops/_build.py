@@ -5,7 +5,11 @@ library with a plain C interface under ``build/faceformer_tpu_torch/`` at the
 repository root (seconds per source; nothing includes PyTorch's headers).
 ``build_all`` starts one nvcc per source at once. A library is rebuilt when
 any source or header is newer than it. A missing nvcc or a failed build
-raises; nothing falls back.
+raises; nothing falls back. Several processes may build at once (the
+ranks of a multi-rank run start cold together): an exclusive lock on
+``BUILD_DIR/build.lock`` covers the stale check, the compile into a file
+named with the process id and the rename, so each library is built once
+and no process loads a partial file.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` as an int; ``check`` raises on non-zero.
@@ -13,7 +17,9 @@ returns ``cudaGetLastError()`` as an int; ``check`` raises on non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -56,32 +62,46 @@ def _stale(name: str) -> bool:
     return any(os.path.getmtime(d) > os.path.getmtime(lib) for d in deps)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the build directory's lock file exclusively (released when the
+    process exits, whatever way it does)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Sequence[str] = SOURCES) -> List[str]:
     """Compile every stale source, one nvcc process each, all at once.
-    Returns the names that were built."""
-    todo = [n for n in names if _stale(n)]
-    if not todo:
-        return []
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    exe = nvcc()
-    procs = {}
-    for name in todo:
-        cmd = [exe, *NVCC_FLAGS, "-o", lib_path(name) + ".tmp",
-               os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    failed = []
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        with open(log_path(name), "w") as f:
-            f.write(out)
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(lib_path(name) + ".tmp", lib_path(name))
-    if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    return todo
+    Returns the names that this process built (none where another process
+    built them first)."""
+    with _build_lock():
+        todo = [n for n in names if _stale(n)]
+        if not todo:
+            return []
+        exe = nvcc()
+        procs = {}
+        for name in todo:
+            tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+            cmd = [exe, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            with open(log_path(name), "w") as f:
+                f.write(out)
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, lib_path(name))
+        if failed:
+            raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        return todo
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -119,3 +139,4 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+

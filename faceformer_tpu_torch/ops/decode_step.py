@@ -197,15 +197,15 @@ def decode_step(step: int, x, qpos_t, packed, cross_k, cross_v, memory, mem_bias
              scratch(e, torch.float32), scratch(ff)]
     fn = _build.bind("decode_step", "decode_step",
                      [ctypes.c_int] * 10 + [ctypes.c_void_p] * 26)
-    status = fn(
-        _DTYPES[dt], step, n, r // n, s, e, ff, num_head, lyr, t_max,
-        *(_build.ptr(t) for t in (
-            x, qpos_t, packed["w_mats"], packed["vecs"], packed["ffn_w1"], packed["ffn_w2"],
-            packed["ffn_b1"], packed["final_norm"], packed["proj_w"], packed["proj_b"],
-            cross_k, cross_v, memory, mem_bias, cache, x_out, tokens, *work)),
-        _build.stream_ptr(dev))
-    _build.check("decode_step", status, "decode_step launch")
-    ops.LAUNCHES["decode_step"] += 1
+    with ops.launching("decode_step", dev):
+        status = fn(
+            _DTYPES[dt], step, n, r // n, s, e, ff, num_head, lyr, t_max,
+            *(_build.ptr(t) for t in (
+                x, qpos_t, packed["w_mats"], packed["vecs"], packed["ffn_w1"], packed["ffn_w2"],
+                packed["ffn_b1"], packed["final_norm"], packed["proj_w"], packed["proj_b"],
+                cross_k, cross_v, memory, mem_bias, cache, x_out, tokens, *work)),
+            _build.stream_ptr(dev))
+        _build.check("decode_step", status, "decode_step launch")
     return x_out, tokens
 
 
@@ -261,11 +261,12 @@ def decode_gemm(a, w, bias, *, epilogue: str = "store", resid=None, out_dtype=No
                                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                                            ctypes.c_void_p])
-    status = fn(_DTYPES[a.dtype], _DTYPES[w.dtype], _DTYPES[c_dtype], _EPILOGUES[epilogue],
-                m, n, k, _build.ptr(a), k, _build.ptr(w), n, _build.ptr(bias), _build.ptr(out), n,
-                ctypes.c_void_p(None) if resid is None else _build.ptr(resid), n,
-                _build.stream_ptr(a.device))
-    _build.check("decode_step", status, f"decode_gemm launch ({a.dtype} . {w.dtype} -> "
-                                        f"{c_dtype}, {epilogue})")
-    ops.LAUNCHES["decode_gemm"] += 1
+    with ops.launching("decode_gemm", a.device):
+        status = fn(_DTYPES[a.dtype], _DTYPES[w.dtype], _DTYPES[c_dtype], _EPILOGUES[epilogue],
+                    m, n, k, _build.ptr(a), k, _build.ptr(w), n, _build.ptr(bias),
+                    _build.ptr(out), n,
+                    ctypes.c_void_p(None) if resid is None else _build.ptr(resid), n,
+                    _build.stream_ptr(a.device))
+        _build.check("decode_step", status, f"decode_gemm launch ({a.dtype} . {w.dtype} -> "
+                                            f"{c_dtype}, {epilogue})")
     return out

@@ -114,9 +114,10 @@ def keep_mask_on_card(seed: int, n: int, h: int, sq: int, sk: int, rate: float,
     out = torch.empty((n, h, sq, sk), dtype=torch.uint8, device=device)
     fn = _build.bind("flash", "flash_keep_mask", [ctypes.c_uint64, ctypes.c_uint32]
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    status = fn(int(seed), dropout_threshold(rate), n, h, sq, sk, _build.ptr(out),
-                _build.stream_ptr(out.device))
-    _build.check("flash", status, "flash_keep_mask launch")
+    with torch.cuda.device(out.device):
+        status = fn(int(seed), dropout_threshold(rate), n, h, sq, sk, _build.ptr(out),
+                    _build.stream_ptr(out.device))
+        _build.check("flash", status, "flash_keep_mask launch")
     return out.bool()
 
 
@@ -259,12 +260,12 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
     fn = _build.bind("flash", "flash_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 4
                      + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGS
                      + [ctypes.c_void_p] * 3)
-    status = fn(dt, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
-                n, sq, sk, h, hd, hd ** -0.5, int(causal), int(seed), threshold,
-                dropout_scale(dropout_rate), _build.ptr(out), _build.ptr(lse),
-                _build.stream_ptr(q.device))
-    _build.check("flash", status, "flash_fwd launch")
-    ops.LAUNCHES["flash_fwd"] += 1
+    with ops.launching("flash_fwd", q.device):
+        status = fn(dt, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
+                    n, sq, sk, h, hd, hd ** -0.5, int(causal), int(seed), threshold,
+                    dropout_scale(dropout_rate), _build.ptr(out), _build.ptr(lse),
+                    _build.stream_ptr(q.device))
+        _build.check("flash", status, "flash_fwd launch")
     if tiled_tc:
         ops.LAUNCHES["flash_fwd_tiled_tc"] += 1
     return out, lse
@@ -315,14 +316,14 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
     fn = _build.bind("flash_bwd", "flash_bwd", [ctypes.c_int] + [ctypes.c_void_p] * 6
                      + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGS
                      + [ctypes.c_void_p] * 6)
-    status = fn(dt, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
-                _build.ptr(lse), _build.ptr(dout), n, sq, sk, h, hd, hd ** -0.5, int(causal),
-                int(seed), threshold, dropout_scale(dropout_rate), _build.ptr(dq), _build.ptr(dk),
-                _build.ptr(dv), _build.ptr(delta),
-                ctypes.c_void_p(None if keep_bits is None else keep_bits.data_ptr()),
-                _build.stream_ptr(q.device))
-    _build.check("flash_bwd", status, "flash_bwd launch")
-    ops.LAUNCHES["flash_bwd"] += 1
+    with ops.launching("flash_bwd", q.device):
+        status = fn(dt, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
+                    _build.ptr(lse), _build.ptr(dout), n, sq, sk, h, hd, hd ** -0.5, int(causal),
+                    int(seed), threshold, dropout_scale(dropout_rate), _build.ptr(dq),
+                    _build.ptr(dk), _build.ptr(dv), _build.ptr(delta),
+                    ctypes.c_void_p(None if keep_bits is None else keep_bits.data_ptr()),
+                    _build.stream_ptr(q.device))
+        _build.check("flash_bwd", status, "flash_bwd launch")
     if tiled_tc:
         ops.LAUNCHES["flash_bwd_tiled_tc"] += 1
     return dq, dk, dv

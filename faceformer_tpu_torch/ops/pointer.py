@@ -55,11 +55,11 @@ def pointer_argmax(rows: torch.Tensor, memory: torch.Tensor, padding_mask: torch
     out = torch.empty((n, r), dtype=torch.int32, device=rows.device)
     fn = _build.bind("pointer", "pointer_argmax", [ctypes.c_int] + [ctypes.c_void_p] * 3
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    status = fn(_DTYPES[rows.dtype], _build.ptr(rows), _build.ptr(memory),
-                _build.ptr(padding_mask), n, r, s, e, _build.ptr(out),
-                _build.stream_ptr(rows.device))
-    _build.check("pointer", status, "pointer_argmax launch")
-    ops.LAUNCHES["pointer_argmax"] += 1
+    with ops.launching("pointer_argmax", rows.device):
+        status = fn(_DTYPES[rows.dtype], _build.ptr(rows), _build.ptr(memory),
+                    _build.ptr(padding_mask), n, r, s, e, _build.ptr(out),
+                    _build.stream_ptr(rows.device))
+        _build.check("pointer", status, "pointer_argmax launch")
     return out
 
 
@@ -110,10 +110,10 @@ def pointer_argmax_gather(rows: torch.Tensor, memory: torch.Tensor,
     fn = _build.bind("pointer", "pointer_argmax_gather", [ctypes.c_int] + [ctypes.c_void_p] * 4
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     null = ctypes.c_void_p(None)
-    status = fn(_DTYPES[rows.dtype], _build.ptr(rows), _build.ptr(memory),
-                null if padding_mask is None else _build.ptr(padding_mask),
-                null if bias is None else _build.ptr(bias), n, r, s, e, _build.ptr(out),
-                _build.ptr(gathered), _build.stream_ptr(rows.device))
-    _build.check("pointer", status, "pointer_argmax_gather launch")
-    ops.LAUNCHES["pointer_argmax_gather"] += 1
+    with ops.launching("pointer_argmax_gather", rows.device):
+        status = fn(_DTYPES[rows.dtype], _build.ptr(rows), _build.ptr(memory),
+                    null if padding_mask is None else _build.ptr(padding_mask),
+                    null if bias is None else _build.ptr(bias), n, r, s, e, _build.ptr(out),
+                    _build.ptr(gathered), _build.stream_ptr(rows.device))
+        _build.check("pointer", status, "pointer_argmax_gather launch")
     return out, gathered

@@ -21,6 +21,7 @@ file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -84,6 +85,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config)
+    # one process on one card, whatever ranks the training config asked for
+    cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, num_devices=1))
     harness = Harness(cfg, device=args.device)
     state = harness.load(args.ckpt)
 

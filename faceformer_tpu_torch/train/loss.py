@@ -18,10 +18,13 @@ import torch
 from faceformer_tpu_torch.config import TokenConfig
 
 
-def pointer_cross_entropy(
+def summed_cross_entropy(
     outputs: Dict[str, torch.Tensor], token: TokenConfig
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Compute (loss, aux) from a forward_train output dict.
+    """The cross-entropy summed over the non-PAD labels, with aux: the
+    counts of label tokens (``valid_tokens``) and of those predicted right
+    (``correct_tokens``), and the predicted tokens. A training step divides
+    the sum by the label tokens of the global batch (``train/step.py``).
 
     outputs: embedding (N, S, E), pointer (N, ..., E), label (N, ...);
     trailing axes are flattened. The operands keep their compute dtype's
@@ -43,16 +46,23 @@ def pointer_cross_entropy(
     valid = labels2 != token.PAD
     picked = torch.gather(logits, -1, labels2[..., None])[..., 0]
     logz = torch.logsumexp(logits, dim=-1)
-    valid_sum = valid.sum()
-    loss = ((logz - picked) * valid).sum() / valid_sum
+    loss_sum = ((logz - picked) * valid).sum()
 
     pred = logits.argmax(dim=-1)
-    acc_sum = (valid & (pred == labels2)).sum()
-    cls_acc = acc_sum / (valid_sum + 1e-10)
-
     aux = {
-        "cls_acc": cls_acc,
-        "valid_tokens": valid_sum,
+        "valid_tokens": valid.sum(),
+        "correct_tokens": (valid & (pred == labels2)).sum(),
         "predict_tokens": pred.reshape(labels.shape),
     }
-    return loss, aux
+    return loss_sum, aux
+
+
+def pointer_cross_entropy(
+    outputs: Dict[str, torch.Tensor], token: TokenConfig
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Compute (loss, aux) from a forward_train output dict: the token-mean
+    cross-entropy of this batch, and ``summed_cross_entropy``'s aux with the
+    token accuracy ``cls_acc``."""
+    loss_sum, aux = summed_cross_entropy(outputs, token)
+    aux["cls_acc"] = aux["correct_tokens"] / (aux["valid_tokens"] + 1e-10)
+    return loss_sum / aux["valid_tokens"], aux

@@ -3,6 +3,15 @@ faceformer_tpu/train/trainer.py:129-155 compiles): teacher-forced forward,
 pointer cross-entropy, backward, Adam, and the NaN-loss skip. The harness
 (``train/trainer.py``) runs it once a batch and sets each parameter group's
 ``lr`` from ``lr_for_epoch`` at the start of each epoch.
+
+Over several ranks (``parallel/mesh.py``) the gradient is that of the
+global batch's token mean, ``sum of losses / sum of label tokens`` over every
+rank's rows, as JAX's loss over the sharded batch is
+(faceformer_tpu/train/loss.py:55): the label-token count is all-reduced
+before the backward, each rank's summed loss is divided by it, and the
+gradients are summed over the ranks. (A mean of the ranks' own means, as
+DDP's averaging gives, differs whenever the ranks hold different numbers of
+label tokens.)
 """
 
 from __future__ import annotations
@@ -12,7 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from faceformer_tpu_torch.config import Config, TrainerConfig
-from faceformer_tpu_torch.train.loss import pointer_cross_entropy
+from faceformer_tpu_torch.parallel import mesh
+from faceformer_tpu_torch.train.loss import summed_cross_entropy
 
 
 def make_optimizer(model: torch.nn.Module, trainer_cfg: TrainerConfig) -> torch.optim.Adam:
@@ -31,21 +41,35 @@ def lr_for_epoch(trainer_cfg: TrainerConfig, epoch: int) -> float:
 
 
 def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator], cfg: Config, impl: str = "auto"
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step on ``batch``; returns (loss, cls_acc) as 0-d tensors.
+               generator: Optional[torch.Generator], cfg: Config, impl: str = "auto",
+               world: Optional[mesh.World] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step on ``batch``, the rank's rows of the global batch under
+    ``world`` (None: one rank); returns the global (loss, cls_acc) as 0-d
+    tensors.
+
+    Two all-reduces, which do nothing at one rank: the label-token count
+    before the backward, then one bucket of every gradient with the rank's
+    loss share and correct-token count after it.
 
     A step whose loss is not finite is skipped (reference trainer.py:87-88):
     parameters and the optimizer's state, moments and step count, stay
     untouched. The JAX step selects old or new state on the device; here
     the check reads the loss on the host once per step, which waits for the
-    step's device work to finish."""
+    step's device work to finish. The loss it reads is the global one, so
+    every rank steps or skips together."""
     optimizer.zero_grad(set_to_none=True)
     out = model.forward_train(batch, generator=generator, precision=cfg.trainer.precision,
                               scheduled_sampling_ratio=cfg.trainer.scheduled_sampling,
                               impl=impl)
-    loss, aux = pointer_cross_entropy(out, cfg.model.token)
+    loss_sum, aux = summed_cross_entropy(out, cfg.model.token)
+    count = aux["valid_tokens"].reshape(1).to(torch.float64)
+    mesh.all_reduce_(world, [count])
+    tokens = count[0].float()
+    loss = loss_sum / tokens
     loss.backward()
-    if bool(torch.isfinite(loss)):
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    shares = torch.stack([loss.detach(), aux["correct_tokens"].float()])
+    mesh.all_reduce_(world, grads + [shares])
+    if bool(torch.isfinite(shares[0])):
         optimizer.step()
-    return loss.detach(), aux["cls_acc"]
+    return shares[0], shares[1] / (tokens + 1e-10)

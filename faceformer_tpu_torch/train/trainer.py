@@ -14,10 +14,16 @@ checkpoints:
     with causal_cache, as the JAX harness does (trainer.py:161-165); that
     is the reference's behaviour, not a fallback.
 
-One card. ``trainer.num_devices`` 0 or 1 means the card the harness runs on;
-anything that would take more than one card raises (multi-device runs are
-ROADMAP.md Queue 1 item 7), so there is no quiet single-card run of a
-multi-card config.
+Ranks (``parallel/mesh.py``): each process is one rank on one card. With
+``trainer.num_devices`` N > 1, ``python -m faceformer_tpu_torch.main``
+starts N ranks (or ``torchrun`` does), each builds a Harness, and the
+world comes from ``mesh.make_mesh``; a Harness built outside such a rank
+with N > 1 raises, so there is no quiet single-card run of a multi-card
+config. Every rank fits its stripe of each step's global batch (the step
+all-reduces the gradients), decodes and scores its rows of each eval batch
+and writes its rows' prediction JSONs; the means are global, and only
+the writer (rank 0) logs, checkpoints and writes ``results.json``
+(faceformer_tpu/train/trainer.py:213-219, 281-287, 396-460).
 
 ``trainer.rng_impl`` picks the JAX package's PRNG. The port accepts it and
 it changes nothing: dropout here draws from ``torch.Generator`` seeds and
@@ -37,9 +43,9 @@ import torch
 from faceformer_tpu_torch.config import Config
 from faceformer_tpu_torch.data.batching import iter_batches
 from faceformer_tpu_torch.data.dataset import ABCDataset, ABCDatasetParallel
-from faceformer_tpu_torch.device import require_device
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
 from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
+from faceformer_tpu_torch.parallel import mesh
 from faceformer_tpu_torch.params import params_from_jax
 from faceformer_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -104,23 +110,24 @@ def _prefetch_to_device(batches, put):
     yield nxt
 
 
-def _check_devices(num_devices: int, device: torch.device) -> None:
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if num_devices > 1 or (num_devices == 0 and cards > 1):
-        raise NotImplementedError(
-            f"trainer.num_devices={num_devices} with {cards} cards visible asks for a "
-            "multi-device run; the port runs on one card (multi-device data parallelism "
-            "is ROADMAP.md Queue 1 item 7). Set trainer.num_devices 1.")
+def rank_generator(seed: int, rank: int) -> torch.Generator:
+    """The dropout and scheduled-sampling stream of a rank: rank 0 keeps the
+    one-rank run's (``seed + 1``), every other rank one seeded from the seed
+    and its rank, so no two ranks' rows share a mask."""
+    if rank == 0:
+        return torch.Generator().manual_seed(seed + 1)
+    state = np.random.SeedSequence([seed + 1, rank]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) >> 1)
 
 
 class Harness:
     def __init__(self, cfg: Config, datasets: Optional[Dict[str, Any]] = None,
                  device="cuda"):
         self.cfg = cfg
-        self.device = require_device(device)
+        self.world = mesh.make_mesh(cfg.trainer.num_devices, device)
+        self.device = self.world.device
         self.model_cls = MODEL_REGISTRY[cfg.model_class]
         self.dataset_cls = DATASET_REGISTRY[cfg.dataset_class]
-        _check_devices(cfg.trainer.num_devices, self.device)
         self.metrics_engine = FaceMetrics(cfg.post_process, cfg.model.token)
         self.log_dir = os.path.join("logs", cfg.trainer.name, cfg.trainer.version)
         self._datasets = datasets or {}
@@ -170,34 +177,37 @@ class Harness:
 
     def fit(self, state: Optional[Dict[str, Any]] = None,
             max_epochs: Optional[int] = None) -> Dict[str, Any]:
-        cfg = self.cfg
+        cfg, world = self.cfg, self.world
         state = state or self.init_state()
         model, optimizer = state["model"], state["optimizer"]
-        logger = MetricsLogger(self.log_dir)
+        mesh.replicated(world, model)
+        # one writer: the ranks' states are equal, and concurrent writers
+        # would race on the same files
+        logger = MetricsLogger(self.log_dir) if world.is_writer else None
         ckpts = CheckpointManager(os.path.join(self.log_dir, "checkpoints"),
-                                  top_k=cfg.trainer.save_top_k)
+                                  top_k=cfg.trainer.save_top_k) if world.is_writer else None
         train_ds = self.dataset("train")
         # dropout seeds and the scheduled-sampling draw; a resumed run
         # starts the stream afresh, as the JAX harness does
-        generator = torch.Generator().manual_seed(cfg.trainer.seed + 1)
+        generator = rank_generator(cfg.trainer.seed, world.rank)
         max_epochs = max_epochs or cfg.trainer.max_epochs
         step = state["step"]
         for epoch in range(state["epoch"], max_epochs):
             t_epoch = time.perf_counter()
             for group in optimizer.param_groups:
                 group["lr"] = lr_for_epoch(cfg.trainer, epoch)
-            batches = iter_batches(train_ds, cfg.batch_size_train, shuffle=True,
-                                   drop_last=True, seed=cfg.trainer.seed, epoch=epoch)
+            batches = mesh.shard_batch(train_ds, cfg.batch_size_train, world, shuffle=True,
+                                       drop_last=True, seed=cfg.trainer.seed, epoch=epoch)
             step_s, samples = 0.0, 0
             for batch in _prefetch_to_device(batches, self._upload):
                 t0 = time.perf_counter()
                 # train_step reads the loss on the host (the NaN check), so
                 # the step's device work is done when it returns
-                loss, acc = train_step(model, optimizer, batch, generator, cfg)
+                loss, acc = train_step(model, optimizer, batch, generator, cfg, world=world)
                 step_s += time.perf_counter() - t0
-                samples += int(batch["label"].shape[0])
+                samples += int(batch["label"].shape[0]) * world.size
                 step += 1
-                if step % cfg.trainer.log_every_n_steps == 0:
+                if logger is not None and step % cfg.trainer.log_every_n_steps == 0:
                     logger.log_scalars(step, {"train_loss": float(loss),
                                               "train_cls_acc": float(acc)})
             state.update(epoch=epoch + 1, step=step)
@@ -214,19 +224,22 @@ class Harness:
                 timing.update(valid_seconds=time.perf_counter() - t0,
                               valid_decode_seconds=self.eval_seconds["decode"],
                               valid_metrics_seconds=self.eval_seconds["metrics"])
-            if metric is not None or epoch + 1 == max_epochs:
+            if ckpts is not None and (metric is not None or epoch + 1 == max_epochs):
                 t0 = time.perf_counter()
                 last = ckpts.save(self.checkpoint_tree(state), cfg, epoch + 1,
                                   metric_value=metric)
                 timing.update(checkpoint_seconds=time.perf_counter() - t0,
                               checkpoint_bytes=os.path.getsize(last))
-            logger.log_scalars(step, timing)
-        logger.close()
+            if logger is not None:
+                logger.log_scalars(step, timing)
+        if logger is not None:
+            logger.close()
         return state
 
     def _eval_batches(self, split: str):
         ds = self.dataset(split)
-        batch_size = min(self.cfg.batch_size_valid, max(len(ds), 1))
+        batch_size = mesh.eval_batch_size(self.world,
+                                          min(self.cfg.batch_size_valid, max(len(ds), 1)))
         items = ds
         if self.cfg.decode.sort_eval:
             # complexity-sorted batches: each batch decodes until its
@@ -242,12 +255,16 @@ class Harness:
 
     def validate(self, model, logger: Optional[MetricsLogger] = None,
                  step: int = 0) -> Dict[str, float]:
-        """Validation loop (reference: trainer.py:91-102)."""
+        """Validation loop (reference: trainer.py:91-102). Collective: each
+        rank decodes and scores its rows of every batch; the means are
+        global, and the writer logs them."""
+        world = self.world
         ds, batches = self._eval_batches("valid")
         agg: Dict[str, List[float]] = {}
         text_dumps = 0
         decode_s = metrics_s = 0.0
         for batch in batches:
+            batch = mesh.shard_global_batch(batch, world)
             t0 = time.perf_counter()
             # the host copy of the grid waits for the decode
             predict = self._decode(model, self._upload(batch)).cpu().numpy()
@@ -272,16 +289,13 @@ class Harness:
                     if text_dumps >= 4:
                         break
         self.eval_seconds = {"decode": decode_s, "metrics": metrics_s}
-        results = {
-            "valid_precision": _mean(agg.get("precision", [])),
-            "valid_recall": _mean(agg.get("recall", [])),
-            "valid_type_acc": _mean(agg.get("type_acc", [])),
-            "valid_accuracy": _mean(agg.get("accuracy", [])),
-            "valid_type_acc_coedge_seq": _mean(agg.get("type_acc_coedge_seq", [])),
-        }
+        results = {f"valid_{key}": mesh.global_mean(world, agg.get(key, []))
+                   for key in ("precision", "recall", "type_acc", "accuracy",
+                               "type_acc_coedge_seq")}
         if logger is not None:
             logger.log_scalars(step, results)
-        print(" ".join(f"{k}={v:.4f}" for k, v in results.items()), flush=True)
+        if world.is_writer:
+            print(" ".join(f"{k}={v:.4f}" for k, v in results.items()), flush=True)
         return results
 
     def _sync(self) -> None:
@@ -290,7 +304,11 @@ class Harness:
 
     def test(self, model, json_dir: Optional[str] = None) -> Dict[str, float]:
         """Test loop: metrics + per-sample prediction JSONs + decode timing
-        (reference: trainer.py:105-136)."""
+        (reference: trainer.py:105-136). Collective: each rank decodes its
+        rows and writes their JSONs; the means and the sample count are
+        global, the decode time is the rank's over the global count, and
+        the writer writes ``results.json`` and the log."""
+        world = self.world
         ds, batches = self._eval_batches("test")
         json_dir = json_dir or os.path.join(self.log_dir, "json")
         os.makedirs(json_dir, exist_ok=True)
@@ -299,6 +317,7 @@ class Harness:
         total_time, sample_count = 0.0, 0
         warmed = False
         for batch in batches:
+            batch = mesh.shard_global_batch(batch, world)
             device_batch = self._upload(batch)
             if not warmed:
                 # untimed warm-up on the first batch: the first call loads
@@ -332,13 +351,15 @@ class Harness:
                 with open(os.path.join(json_dir, f"{name}.json"), "w") as f:
                     json.dump(record, f, cls=NumpyJSONEncoder)
 
-        results = {
-            "test_precision": _mean(agg.get("precision", [])),
-            "test_recall": _mean(agg.get("recall", [])),
-            "test_type_acc": _mean(agg.get("type_acc", [])),
-            "avg_time_per_sample": total_time / max(sample_count, 1),
-            "num_samples": sample_count,
-        }
+        results = {f"test_{key}": mesh.global_mean(world, agg.get(key, []))
+                   for key in ("precision", "recall", "type_acc")}
+        global_count = int(mesh.global_sum(world, sample_count))
+        # each rank's decode ran beside the others', so its seconds cover the
+        # whole split (JAX trainer.py:444-451)
+        results.update(avg_time_per_sample=total_time / max(global_count, 1),
+                       num_samples=global_count)
+        if not world.is_writer:
+            return results
         print("Avg Time", results["avg_time_per_sample"], "seconds.")
         print(" ".join(f"{k}={v:.4f}" for k, v in results.items() if k != "num_samples"),
               flush=True)
@@ -357,7 +378,8 @@ class Harness:
     def load(self, path: str) -> Dict[str, Any]:
         """A state from a checkpoint: the port's own file (model, Adam,
         epoch, step), or a reference PyTorch .ckpt/.pt/.pth state dict
-        (weights only; a fresh Adam, epoch 0)."""
+        (weights only; a fresh Adam, epoch 0). Every rank loads it, onto its
+        own device."""
         state = self.init_state()
         if path.endswith((".ckpt", ".pt", ".pth")):
             tree = load_torch_checkpoint(path, self.cfg.model.num_encoder_layers,
@@ -371,6 +393,3 @@ class Harness:
         state["step"] = int(tree.get("step", 0))
         return state
 
-
-def _mean(values: List[float]) -> float:
-    return float(np.mean(values)) if values else 0.0

@@ -25,6 +25,7 @@ from faceformer_tpu.train.trainer import Harness as JaxHarness
 from faceformer_tpu_torch import main as port_main
 from faceformer_tpu_torch.config import config_from_dict
 from faceformer_tpu_torch.data.dataset import ABCDatasetParallel
+from faceformer_tpu_torch.parallel.mesh import make_mesh
 from faceformer_tpu_torch.params import params_from_jax, params_to_numpy
 from faceformer_tpu_torch.tools import predict as port_predict
 from faceformer_tpu_torch.train.checkpoint import (
@@ -187,9 +188,9 @@ def test_resume_runs_the_remaining_epochs(tiny_model_cfg, splits, tmp_path):
 
 def test_harness_refuses_what_is_not_ported(tiny_model_cfg):
     cfg = port_cfg(jax_cfg(tiny_model_cfg))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Harness(config_from_dict({**config_to_dict(cfg), "trainer": {"num_devices": 2}}),
-                device="cpu")
+    # data parallelism is ported (tests/test_torch_parallel.py); a model axis is not
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        make_mesh(1, "cpu", model_axis=2)
     # the flat SurfaceFormer is ported now: the harness builds it
     flat = Harness(config_from_dict({**config_to_dict(cfg), "model_class": "SurfaceFormer",
                                      "dataset_class": "ABCDataset"}), device="cpu")

@@ -1,7 +1,7 @@
 """PyTorch port: the training forward and loss against the JAX package
 (CPU, fp32, tiny dims): teacher-forced forward + pointer cross-entropy +
-every parameter gradient, scheduled sampling, and remat with dropout. The
-optimizer step is in tests/test_torch_step.py."""
+every parameter gradient, scheduled sampling, and remat with dropout under
+each policy. The optimizer step is in tests/test_torch_step.py."""
 
 import dataclasses
 
@@ -110,18 +110,21 @@ def test_scheduled_sampling_matches_jax(tiny_model_cfg, batch):
 
 
 def test_remat_replays_dropout_masks(tiny_model_cfg, batch):
-    """remat on == remat off with dropout 0.2: the recomputed layers draw
-    the same masks, because the seeds are arguments of the layer."""
+    """remat on == remat off with dropout 0.2, under every policy: the
+    recomputed layers draw the same masks, because the seeds are arguments
+    of the layer."""
     tree = jax_params(tiny_model_cfg, seed=6)
     results = []
-    for remat in (False, True):
-        cfg = dataclasses.replace(tiny_model_cfg, dropout=0.2, remat=remat)
+    for remat, policy in ((False, "full"),) + tuple((True, p) for p in L.REMAT_POLICIES):
+        cfg = dataclasses.replace(tiny_model_cfg, dropout=0.2, remat=remat, remat_policy=policy)
         model = port_model(cfg, tree)
         results.append(port_loss_and_grads(model, batch, torch.Generator().manual_seed(21)))
-    (loss_a, _, grads_a), (loss_b, _, grads_b) = results
-    assert torch.equal(loss_a, loss_b)
-    for (name, a), (_, b) in zip(leaves(grads_a), leaves(grads_b)):
-        np.testing.assert_allclose(a, b, atol=1e-6, err_msg=name)
+    loss_a, _, grads_a = results[0]
+    assert len(results) == 5
+    for loss_b, _, grads_b in results[1:]:
+        assert torch.equal(loss_a, loss_b)
+        for (name, a), (_, b) in zip(leaves(grads_a), leaves(grads_b)):
+            np.testing.assert_allclose(a, b, atol=1e-6, err_msg=name)
     # dropout is on (the loss moved), seeded, and the generator advances
     model = port_model(dataclasses.replace(tiny_model_cfg, dropout=0.2), tree)
     gen = torch.Generator().manual_seed(21)
@@ -137,10 +140,25 @@ def test_remat_replays_dropout_masks(tiny_model_cfg, batch):
 
 @pytest.mark.parametrize("policy", ["dots", "attn", "attn_ffn"])
 def test_named_remat_policies_are_refused(tiny_model_cfg, batch, policy):
+    """The named policies the port once refused run now: loss and every
+    gradient against the JAX package under the same policy (its XLA
+    attention path), and equal to ``full``'s."""
     cfg = dataclasses.replace(tiny_model_cfg, remat=True, remat_policy=policy)
-    model = port_model(cfg, jax_params(cfg, seed=6))
-    with pytest.raises(NotImplementedError):
-        model.forward_train(torch_batch(batch))
+    tree = jax_params(cfg, seed=6)
+    loss_j, aux_j, grads_j = jax_loss_and_grads(cfg, tree, batch, False)
+    loss, aux, grads = port_loss_and_grads(port_model(cfg, tree), batch)
+    assert abs(float(loss) - loss_j) < 1e-5
+    assert int(aux["valid_tokens"]) == int(aux_j["valid_tokens"])
+    theirs = dict(leaves(grads_j))
+    ours = dict(leaves(grads))
+    assert sorted(ours) == sorted(theirs)
+    for name, g in theirs.items():
+        np.testing.assert_allclose(ours[name], g, atol=5e-4, err_msg=f"grad mismatch at {name}")
+    full = port_loss_and_grads(port_model(dataclasses.replace(cfg, remat_policy="full"), tree),
+                               batch)
+    assert torch.equal(loss, full[0])
+    for (name, a), (_, b) in zip(leaves(grads), leaves(full[2])):
+        np.testing.assert_allclose(a, b, atol=1e-6, err_msg=name)
 
 
 def test_dropout_site_function():
