@@ -108,7 +108,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
      gives device time, by the wrapper that launched it, to K2 and K4, or
      K2 and K3, and none to K1 in the fused decode (K4's attention and
      pointer phases count as K4's);
-  8. one JSON summary of the kernels, the card line, and the result line.
+  8. the corpus pipeline, from STEP files to the split JSON directory the
+     trainer reads, each step a subprocess: (a) ``tools.gen_step_solids``
+     writes 256 STEP solids and (b) ``tools.prepare_data --backend native
+     --random_camera`` turns them into JSONs, SVGs and stat sidecars on the
+     host's 8 cores (configs/step-native-big.yml's commands cut from 4,096
+     solids); (c) ``tools.check_faces_enclosed``, ``filters.filter_length``
+     and ``split_jsons`` run on it, and ``filters.filter_topology`` where
+     sklearn is installed (else its topology features are counted), and
+     the corpus's integer content (solids written and dropped, splits,
+     counts, face types, each solid's faces as types and loop lengths, the
+     face loops of every solid without a traced face, the stat sidecars) is
+     held to the JAX package's (``ORACLE_CORPUS``); (d) ``main`` fits one
+     epoch on it at the width of configs/step-native-big.yml (d=512, 8
+     heads, 6+6 layers, 176 lines, batch 32, remat) and tests ``last``
+     under its causal_cache engine. Gates: the oracle, finite losses that
+     fall, 13 JSONs of four keys, K2 and K3 launched in the fit, K1 and K2
+     and no K4 in the test. Prints each step's host seconds, solids/s and
+     the fit's samples/s;
+  9. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
@@ -3092,6 +3110,225 @@ def run_ranks_phase(seed: int, rng, syn: str, fit_rate_1rank: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the corpus pipeline, STEP files to the split JSON directory the
+# trainer reads, then one epoch at the step-native-big width on it
+# ---------------------------------------------------------------------------
+
+CORPUS_CONFIG = os.path.join(REPO, "configs", "step-native-big.yml")
+# configs/step-native-big.yml:12-15's commands cut from 4,096 solids to 256:
+# the seeded 0.93 / 0.02 / 0.05 split gives 238 / 5 / 13, 7 steps an epoch
+CORPUS_NUM, CORPUS_CORES = 256, 8
+CORPUS_GEN = ("--num", str(CORPUS_NUM), "--seed", "5")
+CORPUS_PREP = ("--backend", "native", "--random_camera", "--seed", "9",
+               "--num_cores", str(CORPUS_CORES))
+# The integer content of that corpus (corpus_digest) as the JAX package's
+# root scripts write it with the same flags on a CPU host, with its
+# checker's and filters' counts: tests/torch_corpus_helpers.py's docstring
+# gives the command.
+ORACLE_CORPUS = {
+    "unclosed": 0, "length_kept": 201, "topology_features": 70, "topology_bins": 70,
+    "solids": 256, "written": {"json": 256, "svg": 256, "stat": 256}, "dropped": [],
+    "split": [238, 5, 13], "split_md5": "c0b5e93a21abab6269884ce8aa315623",
+    "edges": 9710, "faces": 2105, "pairings": 4855,
+    "face_types": {"0": 1264, "1": 420, "2": 55, "3": 120, "4": 82, "6": 147, "7": 17},
+    "traced": 51, "shapes_md5": "2991c71604cbb440b7da16027e197c4d",
+    "untraced_loops_md5": "8475103d918f66374d4baefcb94edac5",
+    "stat_md5": "b86d137566ff6633f4d6dfd73ac44e9d"}
+
+
+def has_traced_face(solid) -> bool:
+    """Whether the native backend traces a silhouette on one of the B-rep
+    solid's faces: a torus or revolution band, or a B-spline patch."""
+    from faceformer_tpu_torch.tools import step21
+
+    return any(f.surface_kind in (step21.TORUS, step21.REVOLUTION)
+               or (f.surface_kind == step21.BSPLINE and f.patch is not None)
+               for f in solid.faces)
+
+
+def corpus_digest(root: str) -> dict:
+    """The integer content of a corpus prepared with the default flag set:
+    the solids written and dropped, the splits, the edge, face and pairing
+    counts, the face types, every solid's faces as (type, loop lengths),
+    the face loops as edge indices of every solid without a traced face
+    (a torus or revolution band, a B-spline patch: the JAX package's
+    traces start from an end that varies from run to run, and with it the
+    order of edges that sort by the traced points), and the stat sidecars'
+    bytes. Digests (md5) stand for the long parts."""
+    import hashlib
+
+    from faceformer_tpu_torch.tools import step21
+
+    def md5(value) -> str:
+        return hashlib.md5(json.dumps(value).encode()).hexdigest()
+
+    def listing(sub):
+        return sorted(os.path.splitext(n)[0] for n in os.listdir(os.path.join(root, sub)))
+
+    names, written = listing("step"), {sub: listing(sub) for sub in ("json", "svg", "stat")}
+    shapes, exact, types, stats = [], [], collections.Counter(), []
+    edges = faces = pairings = traced = 0
+    for name in written["json"]:
+        is_traced = has_traced_face(step21.read_brep(os.path.join(root, "step",
+                                                                  f"{name}.step"))[0])
+        with open(os.path.join(root, "json", f"{name}.json")) as f:
+            data = json.load(f)
+        loops = data["faces_indices"]
+        edges, faces, pairings = (edges + len(data["edges"]), faces + len(loops),
+                                  pairings + len(data["pairings"]))
+        types.update(str(t) for t, _ in loops)
+        shapes.append([name, len(data["edges"]), len(data["pairings"]),
+                       sorted([t, sorted(len(lp) for lp in ls)] for t, ls in loops)])
+        traced += is_traced
+        if not is_traced:
+            exact.append([name, loops, data["pairings"]])
+    for name in written["stat"]:
+        with open(os.path.join(root, "stat", f"{name}.yml")) as f:
+            stats.append(f.read())
+    splits = []
+    for split in ("train.txt", "valid.txt", "test.txt"):
+        with open(os.path.join(root, split)) as f:
+            splits.append(f.read().split())
+    return {"solids": len(names), "written": {k: len(v) for k, v in written.items()},
+            "dropped": sorted(set(names) - set(written["json"])),
+            "split": [len(s) for s in splits], "split_md5": md5(splits),
+            "edges": edges, "faces": faces, "pairings": pairings,
+            "face_types": dict(sorted(types.items())), "traced": traced,
+            "shapes_md5": md5(shapes), "untraced_loops_md5": md5(exact),
+            "stat_md5": md5(stats)}
+
+
+def run_host(cwd, label, module, *argv, timeout=600):
+    """``python -m module argv``, host code that imports no torch, in a
+    subprocess; fails on a non-zero exit. Returns (stdout, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=cwd, env=repo_env(),
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n", flush=True)
+        fail(f"[8] {label}: exit code {proc.returncode}")
+    print(f"[8] {label}: rc 0 in {wall:.2f} s", flush=True)
+    return proc.stdout, wall
+
+
+def build_step_corpus(tmp: str) -> tuple:
+    """(a)-(c): the corpus under ``tmp`` from the port's command lines, its
+    checks and filters, held to ORACLE_CORPUS. Returns (its root, the
+    host seconds of each step)."""
+    import importlib.util
+
+    import yaml
+    from faceformer_tpu_torch.tools.filters.filter_topology import topology_feature
+
+    tools = "faceformer_tpu_torch.tools"
+    root = os.path.join(tmp, "step4k")
+    secs = {}
+    _, secs["gen_step_solids"] = run_host(tmp, "(a) gen_step_solids", f"{tools}.gen_step_solids",
+                                          "--root", root, *CORPUS_GEN)
+    out, secs["prepare_data"] = run_host(tmp, "(b) prepare_data", f"{tools}.prepare_data",
+                                         "--root", root, *CORPUS_PREP)
+    with open(os.path.join(root, "train.txt"), "rb") as f:
+        train_bytes = f.read()
+    print(f"[8] (b) {CORPUS_NUM} solids in {secs['prepare_data']:.2f} s on {CORPUS_CORES} host "
+          f"cores: {CORPUS_NUM / secs['prepare_data']:.2f} solids/s; {len(out.splitlines())} "
+          f"lines of log (solids rejected or failed)", flush=True)
+    got = {}
+    out, secs["check_faces_enclosed"] = run_host(
+        tmp, "(c) check_faces_enclosed", f"{tools}.check_faces_enclosed", "--root", root,
+        "--num_cores", str(CORPUS_CORES))
+    got["unclosed"] = int(out.splitlines()[-1].split()[0])
+    kept = os.path.join(tmp, "filtered_id_list.json")
+    _, secs["filter_length"] = run_host(tmp, "(c) filters.filter_length",
+                                        f"{tools}.filters.filter_length", "--root", root,
+                                        "--out", kept)
+    with open(kept) as f:
+        got["length_kept"] = len(json.load(f))
+    _, secs["split_jsons"] = run_host(tmp, "(c) split_jsons", f"{tools}.split_jsons",
+                                      "--root", root, "--seed", "9")
+    with open(os.path.join(root, "train.txt"), "rb") as f:
+        if f.read() != train_bytes:
+            fail("[8] (c) split_jsons --seed 9 did not rewrite prepare_data's split")
+    features = set()
+    for name in os.listdir(os.path.join(root, "stat")):
+        with open(os.path.join(root, "stat", name)) as f:
+            features.add(tuple(topology_feature(yaml.safe_load(f))))
+    got["topology_features"] = len(features)
+    if importlib.util.find_spec("sklearn") is None:
+        print(f"[8] (c) this host lacks sklearn, which filters.filter_topology bins with and "
+              f"filters.filter_3view clusters with: neither runs here; the {len(features)} "
+              f"distinct topology features filter_topology bins at similarity 0 are counted "
+              f"from the stat sidecars", flush=True)
+    else:
+        bins = os.path.join(tmp, "bins.json")
+        _, secs["filter_topology"] = run_host(tmp, "(c) filters.filter_topology",
+                                              f"{tools}.filters.filter_topology", "--root", root,
+                                              "--out", bins)
+        with open(bins) as f:
+            got["topology_bins"] = len(json.load(f))
+    got.update(corpus_digest(root))
+    want = {k: v for k, v in ORACLE_CORPUS.items() if k != "topology_bins" or k in got}
+    differ = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+    print(f"[8] (c) corpus: {got['written']} written, {len(got['dropped'])} dropped, split "
+          f"{got['split']}, {got['edges']} edges, {got['faces']} faces {got['face_types']}, "
+          f"{got['traced']} solids with a traced face; {got['unclosed']} unclosed, "
+          f"{got['length_kept']} kept by filter_length; the integer content against the JAX "
+          f"package's ({len(want)} keys): {'equal' if not differ else differ}", flush=True)
+    if differ:
+        for k in differ:
+            print(f"[8]   {k}: got {got.get(k)}, JAX package {want.get(k)}", flush=True)
+        fail("[8] the corpus's integer content differs from the JAX package's")
+    return root, secs
+
+
+def run_corpus_phase() -> dict:
+    """Phase 8. Returns the launches of (d)'s command lines."""
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_step_") as tmp:
+        root, secs = build_step_corpus(tmp)
+        base = ("root_dir", root, "trainer.name", "smoke")
+        log = os.path.join(tmp, "logs", "smoke", "step")
+        last = os.path.join(log, "checkpoints", "last")
+        _, st, secs["fit"] = run_cli(tmp, "(d) fit (1 epoch, step-native-big.yml)", MAIN,
+                                     "--config-file", CORPUS_CONFIG, *base, "trainer.version",
+                                     "step", "trainer.max_epochs", "1",
+                                     "trainer.checkpoint_period", "1", timeout=600, tag="[8]")
+        total.update(st["launches"])
+        records = read_jsonl(os.path.join(log, "metrics.jsonl"))
+        steps = [(r["step"], r["time"], r["train_loss"]) for r in records if "train_loss" in r]
+        n_steps = ORACLE_CORPUS["split"][0] // 32
+        losses = [x for _, _, x in steps]
+        if [s for s, _, _ in steps] != list(range(1, n_steps + 1)) or not np.all(np.isfinite(losses)):
+            fail(f"[8] fit: train_loss {[(s, x) for s, _, x in steps]}, expected {n_steps} "
+                 "finite steps")
+        rate = 32 * (n_steps - 1) / (steps[-1][1] - steps[0][1])
+        timing = [r for r in records if "epoch_train_seconds" in r][0]
+        print(f"[8] (d) fit: losses {[round(x, 4) for x in losses]}; {rate:.2f} samples/s over "
+              f"steps 2-{n_steps}, epoch {timing['epoch_train_seconds']:.2f} s, validation "
+              f"{timing['valid_seconds']:.2f} s", flush=True)
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            fail("[8] fit: the last three steps' mean loss is not below the first three's")
+        if st["launches"]["flash_fwd"] <= 0 or st["launches"]["flash_bwd"] <= 0:
+            fail(f"[8] fit: launches {st['launches']}; K2 and K3 expected")
+        _, st, secs["test"] = run_cli(tmp, "(d) test last, decode.mode causal_cache", MAIN,
+                                      "--config-file", CORPUS_CONFIG, "--test_ckpt", last, *base,
+                                      "trainer.version", "step-test", tag="[8]")
+        total.update(st["launches"])
+        with open(os.path.join(tmp, "logs", "smoke", "step-test", "results.json")) as f:
+            results = json.load(f)
+        read_records(os.path.join(tmp, "logs", "smoke", "step-test", "json"),
+                     ORACLE_CORPUS["split"][2])
+        print(f"[8] (d) test: {results}", flush=True)
+        if (st["launches"]["pointer_argmax"] <= 0 or st["launches"]["flash_fwd"] <= 0
+                or st["launches"]["decode_step"]):
+            fail(f"[8] test causal_cache: launches {st['launches']}; K1 and K2 expected, no K4")
+    print(f"[8] seconds: {json.dumps({k: round(v, 2) for k, v in secs.items()})}; the corpus "
+          f"phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3354,7 +3591,12 @@ def main() -> int:
         total[k] += v
     corpus.cleanup()
 
-    # phase 8
+    # phase 8: the corpus pipeline, then one epoch at the step-native-big width
+    torch.cuda.empty_cache()
+    for k, v in run_corpus_phase().items():
+        total[k] += v
+
+    # phase 9
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
@@ -3371,7 +3613,7 @@ def main() -> int:
                                        for label in ("flat-decoder-self", LONG_TIMED[0])}
     summary["kernels"][5]["shapes"] = {label: flat_rows["flash_bwd"][label]
                                        for label in ("flat-decoder-self", LONG_TIMED[0])}
-    print(f"[8] the script took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[9] the script took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

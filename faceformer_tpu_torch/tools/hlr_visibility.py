@@ -1,0 +1,604 @@
+"""Native hidden-line visibility classification.
+
+A copy of faceformer_tpu/tools/hlr_visibility.py with its imports renamed to
+the port's modules: the same inputs write the same files.
+
+The reference's 3-view filter renders only the VISIBLE image of each
+shape: OCC's HLR hands it the visible compounds (``VCompound``,
+``OutLineVCompound``, ``Rg1LineVCompound`` — dataset/filters/
+3view_render.py:29-105) after running exact hidden-line removal. The
+native backend's silhouette splitting produces the same curve set but
+kept both sides; this module adds the missing half: a ray-cast
+occlusion test against the solid's analytic faces, so sampled edge
+points classify as visible/hidden with no CAD kernel.
+
+A point is occluded when the open ray from it toward the viewer
+(orthographic: along the view normal; perspective: the segment to the
+eye) crosses any face of the solid. Each surface class intersects the
+ray analytically — planes linearly, cylinders/cones/spheres
+quadratically, tori through a batched quartic (companion-matrix
+eigenvalues), B-spline extrusions via profile/line crossings in the
+quotient plane, revolutions via meridian/ray-trace crossings in the
+(radius, height) half-plane, and general (possibly rational) patches
+via multi-start Newton — and face membership of the hit comes from the
+boundary loops mapped into each surface's parameter space.
+"""
+
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+
+from .step21 import (
+    BSPLINE, CYLINDER, CONE, EXTRUSION, PLANE, REVOLUTION, SPHERE, TORUS,
+    BFace, BPatch, BSolid, UnsupportedStep, bspline_domain, bspline_eval,
+    bspline_eval_raw, patch_partials)
+from .step_native import NativeProjector, discretize_bedge, solid_bbox
+
+_EPS_SELF = 3e-4   # self-hit exclusion along the ray (normalized solids)
+_KNIFE = 1e-9      # interior margin against knife-edge boundary hits
+
+
+# ---------------------------------------------------------------------------
+# batched de Boor: per-query control nets (patch Newton needs thousands of
+# simultaneous evaluations; the scalar path in step21 loops in Python)
+# ---------------------------------------------------------------------------
+
+
+def _deboor_batch(ctrl: np.ndarray, knots: np.ndarray, p: int,
+                  ts: np.ndarray) -> np.ndarray:
+    """De Boor over per-query control nets: ctrl (T, n, dim), ts (T,) ->
+    (T, dim). The step21 scalar version (bspline_eval_raw) shares ONE net
+    across the batch; this one carries a different net per query."""
+    knots = np.asarray(knots, dtype=float)
+    ts = np.clip(np.asarray(ts, dtype=float), knots[p],
+                 knots[len(knots) - p - 1])
+    n = ctrl.shape[1]
+    k = np.clip(np.searchsorted(knots, ts, side="right") - 1, p, n - 1)
+    idx = k[:, None] - p + np.arange(p + 1)[None, :]            # (T, p+1)
+    d = np.take_along_axis(ctrl, idx[:, :, None], axis=1).copy()
+    for r in range(1, p + 1):
+        for j in range(p, r - 1, -1):
+            i = k - p + j
+            den = knots[i + p - r + 1] - knots[i]
+            safe = np.where(np.abs(den) > 1e-12, den, 1.0)
+            alpha = np.where(np.abs(den) > 1e-12, (ts - knots[i]) / safe, 0.0)
+            d[:, j] = ((1.0 - alpha)[:, None] * d[:, j - 1]
+                       + alpha[:, None] * d[:, j])
+    return d[:, p]
+
+
+def _patch_eval_batch(patch: BPatch, uvs: np.ndarray) -> np.ndarray:
+    """patch_eval vectorized over (T, 2) queries (rational-aware)."""
+    uvs = np.atleast_2d(np.asarray(uvs, dtype=float))
+    grid = patch.hom_grid() if patch.weights is not None else patch.grid
+    nu, nv, dim = grid.shape
+    cv = grid.transpose(1, 0, 2).reshape(nv, nu * dim)
+    rows = bspline_eval_raw(cv, patch.vknots, patch.vdeg, uvs[:, 1])
+    out = _deboor_batch(rows.reshape(-1, nu, dim), patch.uknots,
+                        patch.udeg, uvs[:, 0])
+    if patch.weights is not None:
+        return out[:, :3] / out[:, 3:]
+    return out
+
+
+def _patch_partial_batch(patch: BPatch, su, sv,
+                         uvs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(dS/du, dS/dv) at (T, 2) queries. ``su``/``sv`` are the
+    patch_partials handles (BPatches or _RationalPartial markers)."""
+    if patch.weights is None:
+        return _patch_eval_batch(su, uvs), _patch_eval_batch(sv, uvs)
+    hom = BPatch(patch.hom_grid(), patch.udeg, patch.vdeg,
+                 patch.uknots, patch.vknots)
+    a = _patch_eval_batch(hom, uvs)                       # (T, 4)
+    w = a[:, 3:]
+    s = a[:, :3] / w
+    outs = []
+    from .step21 import _hodograph_raw
+    for axis in ("u", "v"):
+        if axis == "u":
+            g, kk, pp = _hodograph_raw(hom.grid, patch.uknots, patch.udeg)
+            dpatch = BPatch(g, pp, patch.vdeg, kk, patch.vknots)
+        else:
+            g, kk, pp = _hodograph_raw(hom.grid.transpose(1, 0, 2),
+                                       patch.vknots, patch.vdeg)
+            dpatch = BPatch(g.transpose(1, 0, 2), patch.udeg, pp,
+                            patch.uknots, kk)
+        ad = _patch_eval_batch(dpatch, uvs)               # (T, 4)
+        outs.append((ad[:, :3] - s * ad[:, 3:]) / w)
+    return outs[0], outs[1]
+
+
+# ---------------------------------------------------------------------------
+# boundary-loop machinery
+# ---------------------------------------------------------------------------
+
+
+def _loop_points(face: BFace, tol: float) -> List[np.ndarray]:
+    """Each boundary loop as one continuous 3D polyline in walk order."""
+    out = []
+    for loop in face.loops:
+        pts: List[np.ndarray] = []
+        for edge, orient in loop:
+            p = discretize_bedge(edge, tol)
+            if orient:
+                p = p[::-1]
+            pts.extend(p if not pts else p[1:])
+        out.append(np.asarray(pts, dtype=float))
+    return out
+
+
+def _even_odd(polys: List[np.ndarray], u: np.ndarray,
+              v: np.ndarray) -> np.ndarray:
+    """Vectorized even-odd point-in-polygon over a set of loops (holes
+    included by parity), queries (u, v) -> bool."""
+    inside = np.zeros(u.shape, dtype=bool)
+    for poly in polys:
+        x1, y1 = poly[:-1, 0], poly[:-1, 1]
+        x2, y2 = poly[1:, 0], poly[1:, 1]
+        # close the loop if the discretization left it open
+        if abs(poly[0, 0] - poly[-1, 0]) > 1e-12 or \
+                abs(poly[0, 1] - poly[-1, 1]) > 1e-12:
+            x1 = np.append(x1, poly[-1, 0]); y1 = np.append(y1, poly[-1, 1])
+            x2 = np.append(x2, poly[0, 0]); y2 = np.append(y2, poly[0, 1])
+        cond = (y1[None, :] > v[:, None]) != (y2[None, :] > v[:, None])
+        dy = y2 - y1
+        safe = np.where(np.abs(dy) > 1e-15, dy, 1.0)
+        xs = x1[None, :] + (v[:, None] - y1[None, :]) * (x2 - x1)[None, :] / safe[None, :]
+        inside ^= (np.sum(cond & (xs > u[:, None]), axis=1) % 2).astype(bool)
+    return inside
+
+
+def _angular_polys(face: BFace, frame, tol: float,
+                   height_of: Callable[[np.ndarray], np.ndarray]
+                   ) -> List[np.ndarray]:
+    """Boundary loops mapped to (unwrapped azimuth, height) space for
+    periodic surfaces (cylinder/cone): seam-closed walks unwrap to closed
+    polygons covering one period."""
+    polys = []
+    for pts in _loop_points(face, tol):
+        q = pts - frame.origin
+        theta = np.unwrap(np.arctan2(q @ frame.y, q @ frame.x))
+        polys.append(np.stack([theta, height_of(pts)], axis=1))
+    return polys
+
+
+def _replica_parity(polys: List[np.ndarray], theta: np.ndarray,
+                    h: np.ndarray) -> np.ndarray:
+    """Even-odd membership on a 2*pi-periodic strip: test the query
+    against the loop polygons and their +-2*pi translates (the region
+    tiles, so the query lands in at most one replica)."""
+    inside = np.zeros(theta.shape, dtype=bool)
+    for shift in (-2 * np.pi, 0.0, 2 * np.pi):
+        shifted = [p + np.array([shift, 0.0]) for p in polys]
+        inside ^= _even_odd(shifted, theta, h)
+    return inside
+
+
+# ---------------------------------------------------------------------------
+# the tester
+# ---------------------------------------------------------------------------
+
+
+class OcclusionTester:
+    """Ray-cast occlusion against one solid's analytic faces.
+
+    ``occluded(points)`` classifies world-space points: True when the
+    ray from the point toward the viewer crosses any face of the solid
+    strictly between the point and the viewer (reference semantics: a
+    point on a visible HLR compound is exactly a non-occluded point,
+    3view_render.py:63-72)."""
+
+    def __init__(self, solid: BSolid, proj: NativeProjector,
+                 tol: float = 1e-4):
+        self.proj = proj
+        self.tol = tol
+        lo, hi = solid_bbox(solid)
+        self._center = (lo + hi) / 2
+        self._radius = float(np.linalg.norm(hi - lo)) / 2 * 1.05 + 10 * tol
+        self._tests = [self._prep(f) for f in solid.faces]
+
+    # -- public ----------------------------------------------------------
+
+    def occluded(self, pts) -> np.ndarray:
+        pts = np.atleast_2d(np.asarray(pts, dtype=float))
+        if self.proj.focus == 0.0:
+            d = np.broadcast_to(self.proj.n, pts.shape)
+            # exit of the bbox sphere bounds the useful ray span
+            shi = (pts - self._center) @ self.proj.n
+            shi = -shi + self._radius
+            shi = np.maximum(shi, 0.0)
+        else:
+            eye = self.proj.eye
+            d = eye[None, :] - pts
+            shi = np.ones(len(pts))
+        dlen = np.linalg.norm(d, axis=1)
+        slo = np.full(len(pts), _EPS_SELF) / np.maximum(dlen, 1e-12)
+        out = np.zeros(len(pts), dtype=bool)
+        for test in self._tests:
+            todo = ~out
+            if not np.any(todo):
+                break
+            hit = test(pts[todo], d[todo], slo[todo], shi[todo])
+            out[todo] = hit
+        return out
+
+    def visible_runs(self, pts) -> List[np.ndarray]:
+        """Split a polyline into its visible sub-polylines (index runs)."""
+        pts = np.atleast_2d(np.asarray(pts, dtype=float))
+        vis = ~self.occluded(pts)
+        runs, start = [], None
+        for i, v in enumerate(vis):
+            if v and start is None:
+                start = i
+            elif not v and start is not None:
+                if i - start >= 2:
+                    runs.append(np.arange(start, i))
+                start = None
+        if start is not None and len(pts) - start >= 2:
+            runs.append(np.arange(start, len(pts)))
+        return runs
+
+    # -- per-face preparation ---------------------------------------------
+
+    def _prep(self, face: BFace) -> Callable:
+        kind = face.surface_kind
+        if kind == PLANE:
+            return self._prep_plane(face)
+        if kind in (CYLINDER, CONE):
+            return self._prep_cyl_cone(face)
+        if kind == SPHERE:
+            return self._prep_sphere(face)
+        if kind == TORUS:
+            return self._prep_torus(face)
+        if kind in (BSPLINE, EXTRUSION) and face.profile is not None \
+                and face.extrude is not None:
+            return self._prep_extrusion(face)
+        if kind == REVOLUTION:
+            return self._prep_revolution(face)
+        if face.patch is not None:
+            return self._prep_patch(face)
+        raise UnsupportedStep(
+            f"occlusion test for surface kind {kind} is outside the "
+            "native subset; use the OCC backend")
+
+    def _prep_plane(self, face: BFace):
+        f = face.frame
+        o, z, x, y = f.origin, f.z, f.x, f.y
+        loops = [np.stack([(p - o) @ x, (p - o) @ y], axis=1)
+                 for p in _loop_points(face, self.tol)]
+
+        def test(p, d, slo, shi):
+            dn = d @ z
+            safe = np.where(np.abs(dn) > 1e-12, dn, 1.0)
+            s = ((o - p) @ z) / safe
+            valid = (np.abs(dn) > 1e-12) & (s > slo) & (s < shi)
+            h = p + s[:, None] * d
+            u, v = (h - o) @ x, (h - o) @ y
+            return valid & _even_odd(loops, u, v)
+
+        return test
+
+    def _prep_cyl_cone(self, face: BFace):
+        f = face.frame
+        o, z = f.origin, f.z
+        r0 = face.radius
+        tana = np.tan(face.semi_angle) if face.surface_kind == CONE else 0.0
+        polys = _angular_polys(face, f, self.tol,
+                               lambda pts: (pts - o) @ z)
+
+        def test(p, d, slo, shi):
+            q = p - o
+            qz, dz = q @ z, d @ z
+            qp = q - qz[:, None] * z
+            dp = d - dz[:, None] * z
+            rq = r0 + qz * tana
+            a = np.einsum("ij,ij->i", dp, dp) - (dz * tana) ** 2
+            b = 2 * (np.einsum("ij,ij->i", qp, dp) - rq * dz * tana)
+            c = np.einsum("ij,ij->i", qp, qp) - rq * rq
+            hit = np.zeros(len(p), dtype=bool)
+            for s in _quad_roots(a, b, c):
+                ok = np.isfinite(s) & (s > slo) & (s < shi)
+                if not np.any(ok):
+                    continue
+                station = rq + s * dz * tana
+                ok &= station > 10 * _KNIFE  # reject the mirror cone/apex
+                h = p + s[:, None] * d
+                qh = h - o
+                theta = np.arctan2(qh @ f.y, qh @ f.x)
+                hh = qh @ z
+                ok &= _replica_parity(polys, theta, hh)
+                hit |= ok
+            return hit
+
+        return test
+
+    def _prep_sphere(self, face: BFace):
+        c = face.frame.origin
+        r = face.radius
+        planes = []
+        all_pts = []
+        for loop in face.loops:
+            for edge, _ in loop:
+                if edge.curve.kind != "circle":
+                    raise UnsupportedStep(
+                        "sphere face with non-circular bounds is outside "
+                        "the native occlusion subset; use the OCC backend")
+                fr = edge.curve.frame
+                key = (tuple(np.round(fr.z, 9)),
+                       round(float(fr.z @ fr.origin), 9))
+                nkey = (tuple(np.round(-fr.z, 9)),
+                        round(float(-fr.z @ fr.origin), 9))
+                if key not in [k for k, _n, _o in planes] and \
+                        nkey not in [k for k, _n, _o in planes]:
+                    planes.append((key, fr.z.copy(), fr.origin.copy()))
+            all_pts.append(np.concatenate(_loop_points(face, self.tol)))
+        mean = np.concatenate(all_pts).mean(axis=0)
+        radial = mean - c
+        if float(np.linalg.norm(radial)) < 1e-6 * r:
+            # symmetric band: any azimuthal direction is interior
+            axis = planes[0][1]
+            seed = np.array([1.0, 0.0, 0.0])
+            if abs(float(seed @ axis)) > 0.9:
+                seed = np.array([0.0, 1.0, 0.0])
+            radial = seed - axis * float(seed @ axis)
+        ref = c + r * radial / float(np.linalg.norm(radial))
+        signs = [np.sign(float((ref - po) @ n)) for _k, n, po in planes]
+
+        def test(p, d, slo, shi):
+            q = p - c
+            a = np.einsum("ij,ij->i", d, d)
+            b = 2 * np.einsum("ij,ij->i", q, d)
+            cc = np.einsum("ij,ij->i", q, q) - r * r
+            hit = np.zeros(len(p), dtype=bool)
+            for s in _quad_roots(a, b, cc):
+                ok = np.isfinite(s) & (s > slo) & (s < shi)
+                if not np.any(ok):
+                    continue
+                h = p + s[:, None] * d
+                for (_k, n, po), sign in zip(planes, signs):
+                    ok &= np.sign((h - po) @ n) == sign
+                hit |= ok
+            return hit
+
+        return test
+
+    def _prep_torus(self, face: BFace):
+        f = face.frame
+        c, z = f.origin, f.z
+        R, r = face.radius, face.radius2
+        # the tube-angle interval from the boundary samples: circles give
+        # the band ends, seam edges fill the interior, so the allowed v
+        # range is the complement of the largest angular gap
+        vs = []
+        for pts in _loop_points(face, self.tol):
+            q = pts - c
+            ch = q @ z
+            rho = np.sqrt(np.einsum("ij,ij->i", q, q) - ch * ch)
+            vs.append(np.arctan2(ch, rho - R))
+        vs = np.sort(np.mod(np.concatenate(vs), 2 * np.pi))
+        gaps = np.diff(np.concatenate([vs, vs[:1] + 2 * np.pi]))
+        gi = int(np.argmax(gaps))
+        v_lo = float(vs[(gi + 1) % len(vs)] + (2 * np.pi if gi + 1 >= len(vs) else 0.0))
+        v_span = 2 * np.pi - float(gaps[gi])
+
+        def test(p, d, slo, shi):
+            q0 = p - c
+            f0 = np.einsum("ij,ij->i", q0, q0)
+            f1 = 2 * np.einsum("ij,ij->i", q0, d)
+            f2 = np.einsum("ij,ij->i", d, d)
+            az0, az1 = q0 @ z, d @ z
+            g0 = f0 - az0 * az0
+            g1 = f1 - 2 * az0 * az1
+            g2 = f2 - az1 * az1
+            K = R * R - r * r
+            e0, e1, e2 = f0 + K, f1, f2  # f(s) + K coefficients
+            c4 = e2 * e2
+            c3 = 2 * e2 * e1
+            c2 = e1 * e1 + 2 * e2 * e0 - 4 * R * R * g2
+            c1 = 2 * e1 * e0 - 4 * R * R * g1
+            c0 = e0 * e0 - 4 * R * R * g0
+            roots = _quartic_roots(c4, c3, c2, c1, c0)  # (N, 4) complex
+            hit = np.zeros(len(p), dtype=bool)
+            for k in range(roots.shape[1]):
+                s = roots[:, k]
+                ok = (np.abs(s.imag) < 1e-7) & (s.real > slo) & (s.real < shi)
+                if not np.any(ok):
+                    continue
+                sr = s.real
+                h = p + sr[:, None] * d
+                q = h - c
+                ch = q @ z
+                rho = np.sqrt(np.maximum(
+                    np.einsum("ij,ij->i", q, q) - ch * ch, 0.0))
+                v = np.mod(np.arctan2(ch, rho - R) - v_lo, 2 * np.pi)
+                ok &= v <= v_span + 1e-9
+                hit |= ok
+            return hit
+
+        return test
+
+    def _prep_extrusion(self, face: BFace):
+        delta = np.asarray(face.extrude, dtype=float)
+        dlen = float(np.linalg.norm(delta))
+        dz = delta / dlen
+        seed = np.array([1.0, 0.0, 0.0])
+        if abs(float(seed @ dz)) > 0.9:
+            seed = np.array([0.0, 1.0, 0.0])
+        e1 = seed - dz * float(seed @ dz)
+        e1 /= float(np.linalg.norm(e1))
+        e2 = np.cross(dz, e1)
+        lo, hi = bspline_domain(face.profile)
+        us = np.linspace(lo, hi, 257)
+        prof3 = bspline_eval(face.profile, us)
+        p2 = np.stack([prof3 @ e1, prof3 @ e2], axis=1)  # (M, 2)
+
+        def test(p, d, slo, shi):
+            pp = np.stack([p @ e1, p @ e2], axis=1)
+            dd = np.stack([d @ e1, d @ e2], axis=1)
+            a = p2[None, :-1] - pp[:, None]               # (N, M-1, 2)
+            b = p2[None, 1:] - pp[:, None]
+            cra = a[..., 0] * dd[:, None, 1] - a[..., 1] * dd[:, None, 0]
+            crb = b[..., 0] * dd[:, None, 1] - b[..., 1] * dd[:, None, 0]
+            crossing = (cra > 0) != (crb > 0)
+            # s at the crossing from similar triangles along the segment
+            w = np.where(np.abs(cra - crb) > 1e-15,
+                         cra / np.where(np.abs(cra - crb) > 1e-15,
+                                        cra - crb, 1.0), 0.0)
+            pt2 = a + w[..., None] * (b - a)              # relative to pp
+            dn = np.einsum("ij,ij->i", dd, dd)
+            s = np.einsum("nmj,nj->nm", pt2, dd) / np.maximum(dn, 1e-15)[:, None]
+            ok = crossing & (s > slo[:, None]) & (s < shi[:, None])
+            if not np.any(ok):
+                return np.zeros(len(p), dtype=bool)
+            # height along the extrusion at the hit
+            prof_pt = prof3[None, :-1] + w[..., None] * (prof3[None, 1:]
+                                                         - prof3[None, :-1])
+            hit_pt = p[:, None, :] + s[..., None] * d[:, None, :]
+            t = np.einsum("nmj,j->nm", hit_pt - prof_pt, dz) / dlen
+            ok &= (t > _KNIFE) & (t < 1 - _KNIFE)
+            return np.any(ok, axis=1)
+
+        return test
+
+    def _prep_revolution(self, face: BFace):
+        f = face.frame
+        o, z = f.origin, f.z
+        lo, hi = bspline_domain(face.profile)
+        prof = bspline_eval(face.profile, np.linspace(lo, hi, 193))
+        q = prof - o
+        zz = q @ z
+        rr = np.sqrt(np.maximum(np.einsum("ij,ij->i", q, q) - zz * zz, 0.0))
+        meridian = np.stack([rr, zz], axis=1)             # (M, 2)
+
+        def test(p, d, slo, shi):
+            n = len(p)
+            steps = 49
+            ss = slo[:, None] + (shi - slo)[:, None] * \
+                np.linspace(0.0, 1.0, steps)[None, :]
+            x = p[:, None, :] + ss[..., None] * d[:, None, :]
+            qx = x - o
+            zx = qx @ z
+            rx = np.sqrt(np.maximum(
+                np.einsum("nsj,nsj->ns", qx, qx) - zx * zx, 0.0))
+            ray2 = np.stack([rx, zx], axis=2)             # (N, S, 2)
+            a1 = ray2[:, :-1, None, :]                    # (N, S-1, 1, 2)
+            a2 = ray2[:, 1:, None, :]
+            b1 = meridian[None, None, :-1, :]
+            b2 = meridian[None, None, 1:, :]
+            d1 = a2 - a1
+            d2 = b2 - b1
+            rel = b1 - a1
+            den = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0]
+            safe = np.where(np.abs(den) > 1e-15, den, 1.0)
+            t1 = (rel[..., 0] * d2[..., 1] - rel[..., 1] * d2[..., 0]) / safe
+            t2 = (rel[..., 0] * d1[..., 1] - rel[..., 1] * d1[..., 0]) / safe
+            # half-open on both params: a crossing exactly through a
+            # polyline vertex (common when query points come from the same
+            # discretizer) counts exactly once instead of zero times
+            crossing = (np.abs(den) > 1e-15) & (t1 >= 0) & (t1 < 1) \
+                & (t2 >= 0) & (t2 < 1)
+            return np.any(crossing.reshape(n, -1), axis=1)
+
+        return test
+
+    def _prep_patch(self, face: BFace):
+        patch = face.patch
+        su, sv = patch_partials(patch)
+        (ul, uh), (vl, vh) = patch.domain()
+        seeds_u, seeds_v = np.meshgrid(np.linspace(ul, uh, 5),
+                                       np.linspace(vl, vh, 5))
+        seeds = np.stack([seeds_u.ravel(), seeds_v.ravel()], axis=1)
+
+        def test(p, d, slo, shi):
+            n = len(p)
+            k = len(seeds)
+            uv = np.tile(seeds, (n, 1))                   # (N*K, 2)
+            pr = np.repeat(p, k, axis=0)
+            dr = np.repeat(d, k, axis=0)
+            s = np.repeat((slo + shi) / 2, k)
+            for _ in range(12):
+                spt = _patch_eval_batch(patch, uv)
+                fu, fv = _patch_partial_batch(patch, su, sv, uv)
+                F = spt - pr - s[:, None] * dr
+                # J columns: fu, fv, -dr ; solve J dx = -F
+                J = np.stack([fu, fv, -dr], axis=2)
+                det = np.linalg.det(J)
+                good = np.abs(det) > 1e-14
+                dx = np.zeros((len(uv), 3))
+                if np.any(good):
+                    dx[good] = np.linalg.solve(
+                        J[good], -F[good][:, :, None])[:, :, 0]
+                uv = uv + dx[:, :2]
+                s = s + dx[:, 2]
+                uv[:, 0] = np.clip(uv[:, 0], ul - 0.1, uh + 0.1)
+                uv[:, 1] = np.clip(uv[:, 1], vl - 0.1, vh + 0.1)
+            spt = _patch_eval_batch(patch, uv)
+            F = spt - pr - s[:, None] * dr
+            res = np.linalg.norm(F, axis=1)
+            ok = (res < 1e-7) \
+                & (uv[:, 0] > ul + _KNIFE) & (uv[:, 0] < uh - _KNIFE) \
+                & (uv[:, 1] > vl + _KNIFE) & (uv[:, 1] < vh - _KNIFE) \
+                & (s > np.repeat(slo, k)) & (s < np.repeat(shi, k))
+            return np.any(ok.reshape(n, k), axis=1)
+
+        return test
+
+
+# ---------------------------------------------------------------------------
+# root helpers
+# ---------------------------------------------------------------------------
+
+
+def _quad_roots(a: np.ndarray, b: np.ndarray, c: np.ndarray):
+    """Vectorized real quadratic roots; linear fallback when a ~ 0.
+    Returns two arrays with NaN where no real root exists."""
+    lin = np.abs(a) < 1e-14
+    disc = b * b - 4 * a * c
+    ok = disc >= 0
+    sq = np.sqrt(np.where(ok, disc, 0.0))
+    den = np.where(lin, 1.0, 2 * a)
+    r1 = np.where(lin | ~ok, np.nan, (-b - sq) / den)
+    r2 = np.where(lin | ~ok, np.nan, (-b + sq) / den)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rl = np.where(np.abs(b) > 1e-14, -c / b, np.nan)
+    r1 = np.where(lin, rl, r1)
+    return r1, r2
+
+
+def _quartic_roots(c4, c3, c2, c1, c0) -> np.ndarray:
+    """Batched quartic roots via companion-matrix eigenvalues -> (N, 4)
+    complex. Leading coefficient must be bounded away from zero (it is
+    |d|^4 for torus rays)."""
+    n = len(c4)
+    a = c3 / c4
+    b = c2 / c4
+    c = c1 / c4
+    d = c0 / c4
+    comp = np.zeros((n, 4, 4))
+    comp[:, 1, 0] = 1.0
+    comp[:, 2, 1] = 1.0
+    comp[:, 3, 2] = 1.0
+    comp[:, 0, 3] = -d
+    comp[:, 1, 3] = -c
+    comp[:, 2, 3] = -b
+    comp[:, 3, 3] = -a
+    return np.linalg.eigvals(comp)
+
+
+# ---------------------------------------------------------------------------
+# camera-space inversion (edges3d in the dataset JSONs are camera space)
+# ---------------------------------------------------------------------------
+
+
+def unproject(proj: NativeProjector, cam_pts) -> np.ndarray:
+    """Invert NativeProjector.project: camera-space (x', y', z) -> world.
+    Perspective stored x' = x * f / (f - z); orthographic is the plain
+    frame transform."""
+    cam = np.atleast_2d(np.asarray(cam_pts, dtype=float))
+    x, y, z = cam[:, 0].copy(), cam[:, 1].copy(), cam[:, 2]
+    if proj.focus != 0.0:
+        scale = proj.focus / np.maximum(proj.focus - z, 1e-6)
+        x = x / scale
+        y = y / scale
+    return (proj.origin[None, :] + x[:, None] * proj.vx[None, :]
+            + y[:, None] * proj.vy[None, :] + z[:, None] * proj.n[None, :])
