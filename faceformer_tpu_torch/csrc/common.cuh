@@ -58,7 +58,10 @@ __device__ __forceinline__ void argmax_merge(float& v, int& i, float v2, int i2)
 // written out here; no cuRAND). It takes the place of the TPU PRNG that
 // faceformer_tpu/ops/flash.py::_keep_mask reseeds per (grid block, head).
 // The key is the call's 64-bit seed; the counter is (key index / 4, query
-// index, head, sequence) and holds nothing of a kernel's tiling, so the
+// index, head0 + head, sequence): head0 is the call's first head among the
+// model's (a tensor-parallel rank holds heads head0 .. head0 + H - 1, and
+// draws the mask one rank holding every head draws for them). The counter
+// holds nothing of a kernel's tiling, so the
 // forward and the backward kernels regenerate the same mask whatever their
 // blocks, and ops/flash.py::philox_keep_mask computes the very same bits in
 // integer tensor ops. One Philox call yields the bits of four neighbouring
@@ -71,15 +74,18 @@ struct Dropout {
   uint32_t seed_lo = 0, seed_hi = 0;
   uint32_t threshold = 0;  // 0: dropout off
   float scale = 1.f;       // 1 / (1 - rate) in fp32; kept probabilities are multiplied by it
+  uint32_t head0 = 0;      // the call's first head among the model's
   __host__ __device__ bool on() const { return threshold != 0u; }
 };
 
-inline Dropout make_dropout(unsigned long long seed, uint32_t threshold, float scale) {
+inline Dropout make_dropout(unsigned long long seed, uint32_t threshold, float scale,
+                            uint32_t head0) {
   Dropout d;
   d.seed_lo = static_cast<uint32_t>(seed & 0xffffffffull);
   d.seed_hi = static_cast<uint32_t>(seed >> 32);
   d.threshold = threshold;
   d.scale = scale;
+  d.head0 = head0;
   return d;
 }
 
@@ -98,9 +104,10 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
 }
 
 // The random bits of keys 4*(j/4) .. 4*(j/4)+3 for query i of (sequence n,
-// head h).
+// the call's head h: the model's head head0 + h).
 __device__ __forceinline__ uint4 dropout_bits4(const Dropout& dr, int n, int h, int i, int j) {
-  return philox4x32_10(make_uint4((uint32_t)(j >> 2), (uint32_t)i, (uint32_t)h, (uint32_t)n),
+  return philox4x32_10(make_uint4((uint32_t)(j >> 2), (uint32_t)i, dr.head0 + (uint32_t)h,
+                                  (uint32_t)n),
                        dr.seed_lo, dr.seed_hi);
 }
 

@@ -304,11 +304,12 @@ static int flash_fwd_impl(int dtype, const void* q, const void* k, const void* v
 FF_EXPORT int flash_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* bias, int N, int Sq, int Sk, int H, int hd, float scale,
                         int causal, unsigned long long seed, unsigned int threshold,
-                        float drop_scale, void* out, void* lse, void* stream) {
+                        float drop_scale, unsigned int head0, void* out, void* lse,
+                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const float*>(bias);
   auto l = static_cast<float*>(lse);
-  const ff::Dropout drop = ff::make_dropout(seed, threshold, drop_scale);
+  const ff::Dropout drop = ff::make_dropout(seed, threshold, drop_scale, head0);
   if (drop.on())
     return flash_fwd_impl<true>(dtype, q, k, v, b, N, Sq, Sk, H, hd, scale, causal, drop, out,
                                 l, st);
@@ -336,7 +337,8 @@ FF_EXPORT int flash_key_tile(int dtype, int Sk, int hd) {
 }
 
 // The keep mask alone, as bytes (N, H, Sq, Sk): what both flash kernels apply
-// for this seed, for holding it against ops/flash.py::philox_keep_mask.
+// for this seed and first head, for holding it against
+// ops/flash.py::philox_keep_mask.
 __global__ void keep_mask_kernel(ff::Dropout drop, int H, int Sq, int Sk,
                                  unsigned char* __restrict__ out, size_t total) {
   for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < total;
@@ -349,11 +351,13 @@ __global__ void keep_mask_kernel(ff::Dropout drop, int H, int Sq, int Sk,
   }
 }
 
-FF_EXPORT int flash_keep_mask(unsigned long long seed, unsigned int threshold, int N, int H,
-                              int Sq, int Sk, void* out, void* stream) {
+FF_EXPORT int flash_keep_mask(unsigned long long seed, unsigned int threshold,
+                              unsigned int head0, int N, int H, int Sq, int Sk, void* out,
+                              void* stream) {
   const size_t total = (size_t)N * H * Sq * Sk;
   const int blocks = (int)((total + 255) / 256 < 65535 * 16 ? (total + 255) / 256 : 65535 * 16);
   keep_mask_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      ff::make_dropout(seed, threshold, 1.f), H, Sq, Sk, static_cast<unsigned char*>(out), total);
+      ff::make_dropout(seed, threshold, 1.f, head0), H, Sq, Sk, static_cast<unsigned char*>(out),
+      total);
   return (int)cudaGetLastError();
 }

@@ -516,13 +516,13 @@ static bool bwd_tensor_cores(int dtype, int Sk, int hd) {
 FF_EXPORT int flash_bwd(int dtype, const void* q, const void* k, const void* v, const void* bias,
                         const void* lse, const void* dout, int N, int Sq, int Sk, int H, int hd,
                         float scale, int causal, unsigned long long seed, unsigned int threshold,
-                        float drop_scale, void* dq, void* dk, void* dv, void* delta,
-                        void* keep_bits, void* stream) {
+                        float drop_scale, unsigned int head0, void* dq, void* dk, void* dv,
+                        void* delta, void* keep_bits, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const float*>(bias);
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<float*>(delta);
-  const ff::Dropout drop = ff::make_dropout(seed, threshold, drop_scale);
+  const ff::Dropout drop = ff::make_dropout(seed, threshold, drop_scale, head0);
   if (dtype == FF_FLOAT32)
     return ff::launch_bwd_cores<float>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),

@@ -26,6 +26,16 @@ Anchor quirk (replicated): anchor_mode="reference" seeds anchor row j with
 memory row j, WITHOUT the +4 token offset (model_para.py:201); rows at or
 past the sample's edge count start at the Other-type token.
 
+Tensor parallelism (parallel/tensor.py): a model cut over the model axis
+decodes the data rank's rows on every model rank of it. "reference" runs
+the cut layers as they are; "causal_cache" keeps the self- and
+cross-attention K/V of the rank's heads only, sums each ``o`` and ``lin2``
+product over the model ranks and gathers the pointer before the argmax;
+"fused" gathers the decoder's weights once a decode (JAX runs it under
+``shard_map`` over the data axis with replicated weights,
+__graft_entry__.py:159-176) and runs K4 on the whole rows, the same on
+each model rank. The grids are the one-rank grids.
+
 Flat model (``greedy_decode_single``), the "reference" and "causal_cache"
 engines (the JAX package has no fused engine for it). Its stops: with
 retire_rows=True a row retires at its first EOS and writes PAD after it,
@@ -49,8 +59,10 @@ from faceformer_tpu_torch.models.common import (
     encode,
     gather_memory_rows,
     masked_argmax,
+    project_pointer,
 )
 from faceformer_tpu_torch.ops.decode_step import decode_step, pack_decoder_weights
+from faceformer_tpu_torch.parallel.tensor import gather_modules
 
 NEG = float(np.finfo(np.float32).min)
 #: steps between host-side all-done checks under per-row retirement
@@ -74,13 +86,13 @@ def _stacked_linear(lins, x: torch.Tensor) -> torch.Tensor:
 
 def _cross_kv(model, memory: torch.Tensor, pos: torch.Tensor, num_head: int):
     """Cross-attention K/V for every decoder layer at once: K projects
-    (memory + pos), V projects raw memory. Returns (Lyr, N, S, H, hd) each."""
+    (memory + pos), V projects raw memory. Returns (Lyr, N, S, H, hd) each,
+    H the heads the weights hold (a tensor-parallel rank's own)."""
     layers = model.decoder.layers
+    head_dim = memory.shape[-1] // num_head
     k = _stacked_linear([ly.cross_attn.k for ly in layers], memory + pos)
     v = _stacked_linear([ly.cross_attn.v for ly in layers], memory)
-    lyr, n, s, e = k.shape
-    return (k.reshape(lyr, n, s, num_head, e // num_head),
-            v.reshape(lyr, n, s, num_head, e // num_head))
+    return L.split_heads(k, head_dim), L.split_heads(v, head_dim)
 
 
 def _attend(q, k, v, key_padding_mask):
@@ -111,9 +123,10 @@ def _incremental_decoder_step(model, cfg: ModelConfig, x, qpos_t, step: int,
     step's K/V into the per-layer caches in place.
 
     x (..., 1, E); caches (..., T, H, hd) per layer; cross K/V
-    (Lyr, ..., S, H, hd). Returns the decoder output (..., 1, E)."""
-    num_head = cfg.num_head
-    head_dim = cfg.num_model // num_head
+    (Lyr, ..., S, H, hd), H the heads the weights hold (a tensor-parallel
+    rank's, whose ``o`` and ``lin2`` products are summed over the model
+    ranks). Returns the decoder output (..., 1, E)."""
+    head_dim = cfg.num_model // cfg.num_head
     t_max = self_k[0].shape[-3]
     self_padding = torch.arange(t_max, device=x.device) > step
     act = L.activation_fn(cfg.activation)
@@ -124,21 +137,22 @@ def _incremental_decoder_step(model, cfg: ModelConfig, x, qpos_t, step: int,
         q = L.linear(sa.q, qk_in)
         k_t = L.linear(sa.k, qk_in)
         v_t = L.linear(sa.v, t2)
-        q = q.reshape(*q.shape[:-1], num_head, head_dim)
-        self_k[i][..., step, :, :] = k_t[..., 0, :].reshape(*k_t.shape[:-2], num_head, head_dim)
-        self_v[i][..., step, :, :] = v_t[..., 0, :].reshape(*v_t.shape[:-2], num_head, head_dim)
+        q = L.split_heads(q, head_dim)
+        self_k[i][..., step, :, :] = L.split_heads(k_t[..., 0, :], head_dim)
+        self_v[i][..., step, :, :] = L.split_heads(v_t[..., 0, :], head_dim)
         attn = _attend(q, self_k[i], self_v[i], self_padding)
-        x = x + L.linear(sa.o, attn.reshape(*attn.shape[:-2], -1))
+        x = x + L.row_linear(sa.o, attn.reshape(*attn.shape[:-2], -1), sa.shard)
 
         t2 = L.layer_norm(layer.norm2, x)
         ca = layer.cross_attn
         q2 = L.linear(ca.q, t2 + qpos_t)
-        q2 = q2.reshape(*q2.shape[:-1], num_head, head_dim)
+        q2 = L.split_heads(q2, head_dim)
         attn = _attend(q2, cross_k[i], cross_v[i], mem_padding)
-        x = x + L.linear(ca.o, attn.reshape(*attn.shape[:-2], -1))
+        x = x + L.row_linear(ca.o, attn.reshape(*attn.shape[:-2], -1), ca.shard)
 
         t2 = L.layer_norm(layer.norm3, x)
-        x = x + L.linear(layer.ffn.lin2, act(L.linear(layer.ffn.lin1, t2)))
+        ffn = layer.ffn
+        x = x + L.row_linear(ffn.lin2, act(L.linear(ffn.lin1, t2)), ffn.shard)
     return L.layer_norm(model.decoder.norm, x)
 
 
@@ -157,15 +171,18 @@ def _stop_now(step: int, done, early_stop: bool, retire_rows: bool) -> bool:
 
 def _fused_decode_parallel(model, cfg: ModelConfig, memory, pos, padded_mask, tokens0,
                            anchors, dtype, early_stop: bool, retire_rows: bool):
-    """causal_cache semantics, one fused decode-step call per step."""
+    """causal_cache semantics, one fused decode-step call per step. A cut
+    model's decoder weights are gathered first (collective over the model
+    group)."""
     tok = cfg.token
     n, s, e = memory.shape
     f = cfg.num_lines
     t_max = cfg.max_face_length
-    cross_k, cross_v = _cross_kv(model, memory, pos, cfg.num_head)
+    whole = model if model.shard is None else gather_modules(model, ("decoder.", "project."))
+    cross_k, cross_v = _cross_kv(whole, memory, pos, cfg.num_head)
     cross_k = cross_k.reshape(-1, n, s, e).contiguous()
     cross_v = cross_v.reshape(-1, n, s, e).contiguous()
-    packed = pack_decoder_weights(model, dtype)
+    packed = pack_decoder_weights(whole, dtype)
     cache = torch.zeros((cfg.num_decoder_layers, 2, n * f, t_max, e), dtype=dtype,
                         device=memory.device)
     mem_bias = torch.where(padded_mask, NEG, 0.0).to(torch.float32)
@@ -240,7 +257,7 @@ def greedy_decode_parallel(
                         num_head=cfg.num_head, activation=cfg.activation,
                         normalize_before=cfg.normalize_before,
                         tgt_key_padding_mask=prefix_pad, memory_key_padding_mask=mem_pad_b)
-                    pointer_t = L.linear(model.project, out[:, :, step])  # (N, F, E)
+                    pointer_t = project_pointer(model, out[:, :, step])  # (N, F, E)
                     nxt = masked_argmax(memory, pointer_t, padded_mask)
                     tokens[:, :, step + 1] = nxt
                     step += 1
@@ -256,7 +273,8 @@ def greedy_decode_parallel(
         head_dim = cfg.num_model // cfg.num_head
         cross_k, cross_v = _cross_kv(model, memory, pos, cfg.num_head)
         cross_k, cross_v = cross_k[:, :, None], cross_v[:, :, None]  # (Lyr, N, 1, S, H, hd)
-        cache_shape = (n, f, t_max, cfg.num_head, head_dim)
+        heads = L.local_heads(model.decoder.layers[0].self_attn, head_dim)
+        cache_shape = (n, f, t_max, heads, head_dim)
         sk = [torch.zeros(cache_shape, dtype=dtype, device=dev)
               for _ in range(cfg.num_decoder_layers)]
         sv = [torch.zeros(cache_shape, dtype=dtype, device=dev)
@@ -268,7 +286,7 @@ def greedy_decode_parallel(
             x = gather_memory_rows(memory, tokens[:, :, step:step + 1])  # (N, F, 1, E)
             out = _incremental_decoder_step(model, cfg, x, query_pos[step:step + 1], step,
                                             sk, sv, cross_k, cross_v, mem_pad_b)
-            pointer_t = L.linear(model.project, out[:, :, 0])  # (N, F, E)
+            pointer_t = project_pointer(model, out[:, :, 0])  # (N, F, E)
             nxt = masked_argmax(memory, pointer_t, padded_mask)
             out_tok, done = _retire(nxt, done, tok, retire_rows)
             tokens[:, :, step + 1] = out_tok

@@ -20,6 +20,7 @@ from faceformer_tpu_torch.models.embedding import (
     vanilla_embedding,
 )
 from faceformer_tpu_torch.ops.pointer import pointer_argmax
+from faceformer_tpu_torch.parallel.tensor import Shard, copy_to_model, gather_from_model
 from faceformer_tpu_torch.params import init_parameters_
 
 
@@ -36,7 +37,12 @@ class PointerNetwork(nn.Module):
     on the CPU and then moved to ``device``, so a seed gives the same weights
     on every device. The module's ``train()`` / ``eval()`` mode switches
     nothing: dropout is on exactly when ``forward_train`` is given a
-    ``generator``, as ``rng`` switches it in the JAX package."""
+    ``generator``, as ``rng`` switches it in the JAX package.
+
+    ``shard``: the rank's place on the model axis once
+    ``parallel.tensor.shard_params_`` has cut the model (None: whole)."""
+
+    shard: Optional[Shard] = None
 
     def __init__(self, cfg: ModelConfig, query_pos_len: int, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
@@ -140,6 +146,14 @@ def gather_memory_rows(memory: torch.Tensor, token_ids: torch.Tensor) -> torch.T
     flat = token_ids.reshape(token_ids.shape[0], -1).long()  # (N, R)
     rows = torch.gather(memory, 1, flat[..., None].expand(-1, -1, memory.shape[-1]))
     return rows.reshape(*token_ids.shape, memory.shape[-1])
+
+
+def project_pointer(model, out: torch.Tensor) -> torch.Tensor:
+    """The pointer vectors of decoder outputs: ``project``, column-parallel
+    under tensor parallelism and gathered over the model ranks, so the
+    logits, the loss and the argmax see the whole vector on every rank."""
+    shard = model.shard
+    return gather_from_model(L.linear(model.project, copy_to_model(out, shard)), shard)
 
 
 def pointer_logits(memory: torch.Tensor, pointer: torch.Tensor) -> torch.Tensor:

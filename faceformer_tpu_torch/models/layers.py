@@ -22,6 +22,17 @@ per site (``seeds``), and each site makes its mask from its seed alone. No
 mask depends on a generator's state, so a layer that runs twice under remat
 draws the same masks. ``seeds=None`` is eval: nothing is dropped.
 
+Tensor parallelism (parallel/tensor.py): a module that ``shard_params_``
+cut holds its rank's heads or FFN columns and a ``shard``. Each block then
+takes its input through ``copy_to_model`` (the positions and the decoder's
+memory once a stack), runs its local heads (the flash kernels keyed on
+their global head index, so the keep masks are the one-rank run's), sums
+its ``o`` or ``lin2`` product over the model ranks (``reduce_from_model``)
+and adds that bias once. The FFN-activation dropout draws its mask at the
+whole FFN width and keeps the rank's columns; every other site acts on
+replicated activations and draws as at one rank. Without a shard every
+function below runs as at one rank, op for op.
+
 Remat (``model.remat``) recomputes each layer in the backward pass, keeping
 what its policy names (JAX layers.py:475-506): "full" the layer's input
 only; "dots" every matrix product without batch dims (``aten.mm`` and
@@ -33,7 +44,9 @@ its input) that a selective checkpoint's policy saves by name, as
 ``jax.ad_checkpoint.checkpoint_name`` marks a value for JAX's; they are
 applied only under a named policy with gradients on. The flash kernels'
 ``autograd.Function`` is opaque to the policy, so K2 runs again in the
-backward under every policy, as the Pallas call does under JAX's.
+backward under every policy, as the Pallas call does under JAX's. Under
+tensor parallelism a layer's collectives run inside its checkpoint: every
+rank recomputes its layers, and their all-reduces, in the same order.
 """
 
 from __future__ import annotations
@@ -53,13 +66,17 @@ from torch.utils.checkpoint import (
 )
 
 from faceformer_tpu_torch.ops.flash import flash_attention, padding_mask_bias
+from faceformer_tpu_torch.parallel.tensor import Shard, copy_to_model, reduce_from_model
 
 NEG = float(np.finfo(np.float32).min)
 
 
 class Attention(nn.Module):
     """torch.nn.MultiheadAttention-compatible projections, kept as four
-    separate linears like the JAX tree (wq/bq, wk/bk, wv/bv, wo/bo)."""
+    separate linears like the JAX tree (wq/bq, wk/bk, wv/bv, wo/bo).
+    ``shard``: the rank's place on the model axis, once cut."""
+
+    shard: Optional[Shard] = None
 
     def __init__(self, dim: int):
         super().__init__()
@@ -70,6 +87,8 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
+    shard: Optional[Shard] = None
+
     def __init__(self, dim: int, ffn_dim: int):
         super().__init__()
         self.lin1 = nn.Linear(dim, ffn_dim)
@@ -100,6 +119,8 @@ class Stack(nn.Module):
     """A stack of layers plus its final norm (the JAX tree's
     ``{"layers": stacked, "norm": ...}``)."""
 
+    shard: Optional[Shard] = None
+
     def __init__(self, layers, dim: int):
         super().__init__()
         self.layers = nn.ModuleList(layers)
@@ -126,15 +147,31 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return x @ lin.weight.to(x.dtype).t() + lin.bias.to(x.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+def row_linear(lin: nn.Linear, x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """A row-parallel linear: the rank's partial product summed over the
+    model ranks, then the whole bias once; ``linear`` without a shard."""
+    if shard is None:
+        return linear(lin, x)
+    return reduce_from_model(x @ lin.weight.to(x.dtype).t(), shard) + lin.bias.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int],
+            shard: Optional[Shard] = None) -> torch.Tensor:
     """Inverted dropout; identity when seed is None (eval) or rate == 0.
     The mask is a function of (seed, shape, device) only: a generator on
-    x's device seeded with ``seed`` draws it."""
+    x's device seeded with ``seed`` draws it. With a ``shard``, x holds the
+    rank's columns of a tensor ``shard.size`` times as wide: the mask is
+    drawn at that width and cut to the rank's columns."""
     if seed is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
     gen = torch.Generator(device=x.device).manual_seed(int(seed))
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    if shard is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    else:
+        width = x.shape[-1]
+        full = torch.rand((*x.shape[:-1], width * shard.size), generator=gen, device=x.device)
+        mask = full[..., shard.rank * width:(shard.rank + 1) * width] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -180,8 +217,16 @@ def activation_fn(name: str):
     raise ValueError(f"activation should be relu/gelu/glu, not {name}")
 
 
-def _split_heads(x: torch.Tensor, num_head: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], num_head, x.shape[-1] // num_head)
+def split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(..., H * hd) -> (..., H, hd), H the heads of the weight that made
+    ``x``: all of the model's, or a tensor-parallel rank's."""
+    return x.reshape(*x.shape[:-1], x.shape[-1] // head_dim, head_dim)
+
+
+def local_heads(attn: Attention, head_dim: int) -> int:
+    """The heads ``attn``'s weights hold: all of the model's, or a
+    tensor-parallel rank's (the rows of its cut q weight)."""
+    return attn.q.weight.shape[0] // head_dim
 
 
 def multihead_attention(
@@ -206,10 +251,17 @@ def multihead_attention(
     each query (training's decoder self-attention). With a ``seed``, the
     attention probabilities are dropped at ``dropout_rate`` inside the kernel.
     ``impl="plain"`` runs the flash kernels' plain versions, for comparisons.
+
+    ``num_head`` counts the model's heads. A cut block (``attn.shard``)
+    runs its rank's, as many as its q weight holds, on query/key/value that
+    came through ``copy_to_model``; the keep mask is keyed on their global
+    head index, and the output is summed over the model ranks.
     """
-    q = _split_heads(linear(attn.q, query), num_head)
-    k = _split_heads(linear(attn.k, key), num_head)
-    v = _split_heads(linear(attn.v, value), num_head)
+    head_dim = query.shape[-1] // num_head
+    q = split_heads(linear(attn.q, query), head_dim)
+    k = split_heads(linear(attn.k, key), head_dim)
+    v = split_heads(linear(attn.v, value), head_dim)
+    head_offset = 0 if attn.shard is None else attn.shard.rank * local_heads(attn, head_dim)
 
     if q.ndim == 5 and k.ndim == 5 and k.shape[1] == 1 and q.shape[1] > 1:
         if causal:
@@ -221,8 +273,8 @@ def multihead_attention(
               else key_padding_mask.expand(n, 1, sk).reshape(n, sk))
         out = flash_attention(q.reshape(n, f * t, h, hd), k[:, 0], v[:, 0],
                               padding_mask_bias(kp), dropout_rate=dropout_rate, seed=seed,
-                              impl=impl)
-        return linear(attn.o, out.reshape(n, f, t, h * hd))
+                              impl=impl, head_offset=head_offset)
+        return row_linear(attn.o, out.reshape(n, f, t, h * hd), attn.shard)
 
     *batch, sq, h, hd = q.shape
     sk = k.shape[-3]
@@ -234,8 +286,9 @@ def multihead_attention(
           else key_padding_mask.expand(*batch, sk).reshape(n, sk))
     out = flash_attention(
         q.reshape(n, sq, h, hd), k.reshape(n, sk, h, hd), v.reshape(n, sk, h, hd),
-        padding_mask_bias(kp), causal=causal, dropout_rate=dropout_rate, seed=seed, impl=impl)
-    return linear(attn.o, out.reshape(*batch, sq, h * hd))
+        padding_mask_bias(kp), causal=causal, dropout_rate=dropout_rate, seed=seed, impl=impl,
+        head_offset=head_offset)
+    return row_linear(attn.o, out.reshape(*batch, sq, h * hd), attn.shard)
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +298,8 @@ def multihead_attention(
 
 def _ffn(ffn: FeedForward, x: torch.Tensor, act, rate: float = 0.0,
          seed: Optional[int] = None, save_names: Sequence[str] = ()) -> torch.Tensor:
-    return _ckpt_name(linear(ffn.lin2, dropout(act(linear(ffn.lin1, x)), rate, seed)),
+    hidden = act(linear(ffn.lin1, copy_to_model(x, ffn.shard)))
+    return _ckpt_name(row_linear(ffn.lin2, dropout(hidden, rate, seed, ffn.shard), ffn.shard),
                       "ffn_out", save_names)
 
 
@@ -264,22 +318,24 @@ def encoder_layer(
     save_names: Sequence[str] = (),
 ) -> torch.Tensor:
     """One encoder block (reference: transformer.py:146-184). ``save_names``:
-    the tags a named remat policy keeps."""
+    the tags a named remat policy keeps. Under tensor parallelism ``pos``
+    came through ``copy_to_model``."""
     act = activation_fn(activation)
     rate = dropout_rate
     s_attn, s1, s_ffn_in, s2 = _sites(seeds, ENCODER_SITES)
     attend = dict(key_padding_mask=key_padding_mask, dropout_rate=rate, seed=s_attn, impl=impl)
 
-    def attention(qk, value):
+    def attention(x_in):
+        value = copy_to_model(x_in, layer.self_attn.shard)
+        qk = value + pos
         return _ckpt_name(multihead_attention(layer.self_attn, qk, qk, value, num_head, **attend),
                           "attn_out", save_names)
 
     if normalize_before:
-        x2 = layer_norm(layer.norm1, x)
-        x = x + dropout(attention(x2 + pos, x2), rate, s1)
+        x = x + dropout(attention(layer_norm(layer.norm1, x)), rate, s1)
         x2 = layer_norm(layer.norm2, x)
         return x + dropout(_ffn(layer.ffn, x2, act, rate, s_ffn_in, save_names), rate, s2)
-    x = layer_norm(layer.norm1, x + dropout(attention(x + pos, x), rate, s1))
+    x = layer_norm(layer.norm1, x + dropout(attention(x), rate, s1))
     ff = _ffn(layer.ffn, x, act, rate, s_ffn_in, save_names)
     return layer_norm(layer.norm2, x + dropout(ff, rate, s2))
 
@@ -305,7 +361,8 @@ def decoder_layer(
     """One decoder block: self-attn, cross-attn to memory, FFN
     (reference: transformer.py:209-259). ``memory`` may carry a size-1
     anchor axis against ``tgt`` (anchor-parallel decode). ``save_names``:
-    the tags a named remat policy keeps."""
+    the tags a named remat policy keeps. Under tensor parallelism
+    ``memory``, ``query_pos`` and ``pos`` came through ``copy_to_model``."""
     act = activation_fn(activation)
     rate = dropout_rate
     s_sa, s1, s_ca, s2, s_ffn_in, s3 = _sites(seeds, DECODER_SITES)
@@ -314,23 +371,24 @@ def decoder_layer(
     cross_kw = dict(key_padding_mask=memory_key_padding_mask, dropout_rate=rate, seed=s_ca,
                     impl=impl)
 
-    def self_attention(qk, value):
+    def self_attention(x_in):
+        value = copy_to_model(x_in, layer.self_attn.shard)
+        qk = value + query_pos
         return _ckpt_name(multihead_attention(layer.self_attn, qk, qk, value, num_head,
                                               **self_kw), "attn_out", save_names)
 
-    def cross_attention(q):
+    def cross_attention(x_in):
+        q = copy_to_model(x_in, layer.cross_attn.shard) + query_pos
         return _ckpt_name(multihead_attention(layer.cross_attn, q, memory + pos, memory,
                                               num_head, **cross_kw), "attn_out", save_names)
 
     if normalize_before:
-        t2 = layer_norm(layer.norm1, tgt)
-        tgt = tgt + dropout(self_attention(t2 + query_pos, t2), rate, s1)
-        t2 = layer_norm(layer.norm2, tgt)
-        tgt = tgt + dropout(cross_attention(t2 + query_pos), rate, s2)
+        tgt = tgt + dropout(self_attention(layer_norm(layer.norm1, tgt)), rate, s1)
+        tgt = tgt + dropout(cross_attention(layer_norm(layer.norm2, tgt)), rate, s2)
         t2 = layer_norm(layer.norm3, tgt)
         return tgt + dropout(_ffn(layer.ffn, t2, act, rate, s_ffn_in, save_names), rate, s3)
-    tgt = layer_norm(layer.norm1, tgt + dropout(self_attention(tgt + query_pos, tgt), rate, s1))
-    tgt = layer_norm(layer.norm2, tgt + dropout(cross_attention(tgt + query_pos), rate, s2))
+    tgt = layer_norm(layer.norm1, tgt + dropout(self_attention(tgt), rate, s1))
+    tgt = layer_norm(layer.norm2, tgt + dropout(cross_attention(tgt), rate, s2))
     ff = _ffn(layer.ffn, tgt, act, rate, s_ffn_in, save_names)
     return layer_norm(layer.norm3, tgt + dropout(ff, rate, s3))
 
@@ -402,6 +460,7 @@ def encoder_forward(
 ) -> torch.Tensor:
     """Full encoder stack + final norm in pre-LN (reference:
     transformer.py:62-83). ``seeds``: (layers, ENCODER_SITES) ints, or None."""
+    pos = copy_to_model(pos, encoder.shard)
 
     def fn(layer, x, layer_seeds, save_names):
         return encoder_layer(layer, x, pos, key_padding_mask, num_head=num_head,
@@ -437,6 +496,9 @@ def decoder_forward(
     """Full decoder stack + final norm (the decoder norm exists in both
     pre/post-LN modes, reference model.py:42-43). ``seeds``: (layers,
     DECODER_SITES) ints, or None."""
+    # the blocks' column-parallel inputs that every layer shares: their
+    # gradients are summed over the model ranks once a stack
+    memory, query_pos, pos = (copy_to_model(t, decoder.shard) for t in (memory, query_pos, pos))
 
     def fn(layer, x, layer_seeds, save_names):
         return decoder_layer(

@@ -25,6 +25,7 @@ from faceformer_tpu_torch.models.common import (
     pad_target_time,
     padded_query_pos,
     pointer_logits,
+    project_pointer,
 )
 
 
@@ -51,7 +52,9 @@ class SurfaceFormerParallel(PointerNetwork):
         draw; None runs without dropout and without sampling. Returns
         embedding (N, 4+L, E), pointer (N, F, T-1, E), label (N, F, T-1).
         ``impl="plain"`` runs the flash kernels' plain versions, for
-        comparisons."""
+        comparisons. A model cut over the model axis
+        (parallel/tensor.py) runs the same pass on its rank's shards; its
+        outputs are whole on every rank."""
         cfg = self.cfg
         dtype = compute_dtype(precision)
         label = batch["label"].to(torch.int32)
@@ -77,7 +80,7 @@ class SurfaceFormerParallel(PointerNetwork):
                 causal=True, tgt_key_padding_mask=tgt_key_padding,
                 memory_key_padding_mask=mem_pad_b, dropout_rate=cfg.dropout, seeds=seeds,
                 remat=cfg.remat, remat_policy=cfg.remat_policy, impl=impl)
-            return L.linear(self.project, out)
+            return project_pointer(self, out)
 
         if scheduled_sampling_ratio > 0.0 and generator is not None:
             with torch.no_grad():

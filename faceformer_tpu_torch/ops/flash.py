@@ -17,6 +17,9 @@ counter-based (Philox4x32-10 keyed on the call's seed, counter = key index
 / 4, query index, head, sequence), so the forward and the backward kernel
 regenerate the same mask whatever their tilings, and ``philox_keep_mask``
 computes the very same bits in integer tensor ops for the plain versions.
+The head word is the model's head index: a call on heads ``head_offset``
+.. ``head_offset + H - 1`` (a tensor-parallel rank's, parallel/tensor.py)
+draws the bits one call on every head draws for them.
 """
 
 from __future__ import annotations
@@ -90,10 +93,11 @@ def philox4x32_10(counter, key) -> Tuple[torch.Tensor, ...]:
 
 
 def philox_keep_mask(seed: int, n: int, h: int, sq: int, sk: int, rate: float,
-                     device=None) -> torch.Tensor:
+                     device=None, head0: int = 0) -> torch.Tensor:
     """(n, h, sq, sk) bool keep mask of attention dropout, bit for bit the
     mask the CUDA kernels apply for this seed: one Philox call per (sequence,
-    head, query, group of 4 keys) yields the bits of those four keys."""
+    head, query, group of 4 keys) yields the bits of those four keys. The
+    h heads are the model's heads head0 .. head0 + h - 1."""
     seed = int(seed)
     groups = -(-sk // 4)
 
@@ -101,21 +105,23 @@ def philox_keep_mask(seed: int, n: int, h: int, sq: int, sk: int, rate: float,
         return torch.arange(count, dtype=torch.int64, device=device).reshape(shape)
 
     words = philox4x32_10(
-        (ar(groups, (1, 1, 1, groups)), ar(sq, (1, 1, sq, 1)), ar(h, (1, h, 1, 1)),
+        (ar(groups, (1, 1, 1, groups)), ar(sq, (1, 1, sq, 1)), ar(h, (1, h, 1, 1)) + head0,
          ar(n, (n, 1, 1, 1))), (seed & _U32, (seed >> 32) & _U32))
     bits = torch.stack([w.expand(n, h, sq, groups) for w in words], dim=-1)
     return bits.reshape(n, h, sq, groups * 4)[..., :sk] < dropout_threshold(rate)
 
 
 def keep_mask_on_card(seed: int, n: int, h: int, sq: int, sk: int, rate: float,
-                      device) -> torch.Tensor:
+                      device, head0: int = 0) -> torch.Tensor:
     """The same mask written by the card, through the device function both
     flash kernels call; for comparisons with ``philox_keep_mask``."""
     out = torch.empty((n, h, sq, sk), dtype=torch.uint8, device=device)
-    fn = _build.bind("flash", "flash_keep_mask", [ctypes.c_uint64, ctypes.c_uint32]
+    fn = _build.bind("flash", "flash_keep_mask", [ctypes.c_uint64, ctypes.c_uint32,
+                                                  ctypes.c_uint32]
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(out.device):
-        status = fn(int(seed), dropout_threshold(rate), n, h, sq, sk, _build.ptr(out),
+        status = fn(int(seed), dropout_threshold(rate), int(head0), n, h, sq, sk,
+                    _build.ptr(out),
                     _build.stream_ptr(out.device))
         _build.check("flash", status, "flash_keep_mask launch")
     return out.bool()
@@ -139,7 +145,7 @@ def _scores(q, k, bias, causal: bool) -> torch.Tensor:
 
 
 def flash_attention_plain(q, k, v, bias, causal: bool = False, dropout_rate: float = 0.0,
-                          seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                          seed: int = 0, head0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch, with the Pallas kernel's rounding
     points: fp32 scores, fp32 softmax, then the keep mask (p * 1/(1 - rate)
     where kept, else 0), probabilities cast to v's dtype before the product.
@@ -150,7 +156,7 @@ def flash_attention_plain(q, k, v, bias, causal: bool = False, dropout_rate: flo
     denom = e.sum(dim=-1, keepdim=True)
     p = e / denom
     if dropout_rate > 0.0:
-        keep = philox_keep_mask(seed, *p.shape, dropout_rate, device=p.device)
+        keep = philox_keep_mask(seed, *p.shape, dropout_rate, device=p.device, head0=head0)
         p = torch.where(keep, p * dropout_scale(dropout_rate), torch.zeros_like(p))
     out = torch.einsum("nhqk,nkhd->nqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
     lse = (m + torch.log(denom))[..., 0].permute(0, 2, 1).contiguous()
@@ -158,7 +164,7 @@ def flash_attention_plain(q, k, v, bias, causal: bool = False, dropout_rate: flo
 
 
 def flash_attention_bwd_plain(q, k, v, bias, lse, dout, causal: bool = False,
-                              dropout_rate: float = 0.0, seed: int = 0
+                              dropout_rate: float = 0.0, seed: int = 0, head0: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward written out in plain PyTorch with ``_bwd_kernel``'s
     formulas and rounding points (flash.py:140-186): everything in fp32
@@ -171,7 +177,7 @@ def flash_attention_bwd_plain(q, k, v, bias, lse, dout, causal: bool = False,
     dp = torch.einsum("nqhd,nkhd->nhqk", dof, vf)
     p_used = p
     if dropout_rate > 0.0:
-        keep = philox_keep_mask(seed, *p.shape, dropout_rate, device=p.device)
+        keep = philox_keep_mask(seed, *p.shape, dropout_rate, device=p.device, head0=head0)
         zero = torch.zeros_like(p)
         p_used = torch.where(keep, p * dropout_scale(dropout_rate), zero)
         dp = torch.where(keep, dp * dropout_scale(dropout_rate), zero)
@@ -226,16 +232,16 @@ def key_tile(kernel: str, dtype: torch.dtype, sk: int, hd: int) -> int:
     return int(fn(_DTYPES[dtype], sk, hd))
 
 
-_DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
+_DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32]
 
 
 def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
-                        dropout_rate: float = 0.0, seed: int = 0
+                        dropout_rate: float = 0.0, seed: int = 0, head0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (N, Sq, H, hd), k/v (N, Sk, H, hd) of one dtype (float32 or
     bfloat16), bias (N, Sk) fp32 additive -> (out (N, Sq, H, hd), lse
     (N, Sq, H) fp32). ``dropout_rate`` > 0 drops attention probabilities
-    with the keep mask of ``seed``.
+    with the keep mask of ``seed`` for the model's heads head0 .. head0 + H - 1.
 
     CUDA tensors launch the kernel (a key-tiled form past 256 keys or where
     the key side does not fit a block's shared memory: for bf16 at hd = 64
@@ -246,7 +252,7 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
     sk = k.shape[1]
     threshold = dropout_threshold(dropout_rate) if dropout_rate > 0.0 else 0
     if not ops.use_kernel(impl, q, k, v, bias):
-        return flash_attention_plain(q, k, v, bias, causal, dropout_rate, seed)
+        return flash_attention_plain(q, k, v, bias, causal, dropout_rate, seed, head0)
     for t in (q, k, v, bias):
         if not t.is_contiguous():
             raise ValueError("flash_attention needs contiguous tensors")
@@ -263,7 +269,7 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
     with ops.launching("flash_fwd", q.device):
         status = fn(dt, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
                     n, sq, sk, h, hd, hd ** -0.5, int(causal), int(seed), threshold,
-                    dropout_scale(dropout_rate), _build.ptr(out), _build.ptr(lse),
+                    dropout_scale(dropout_rate), int(head0), _build.ptr(out), _build.ptr(lse),
                     _build.stream_ptr(q.device))
         _build.check("flash", status, "flash_fwd launch")
     if tiled_tc:
@@ -272,7 +278,7 @@ def flash_attention_fwd(q, k, v, bias, causal: bool = False, impl: str = "auto",
 
 
 def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: str = "auto",
-                        dropout_rate: float = 0.0, seed: int = 0
+                        dropout_rate: float = 0.0, seed: int = 0, head0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of ``flash_attention_fwd``'s out with respect
     to q, k, v, given its lse (N, Sq, H) and the cotangent dout of out's
@@ -294,7 +300,8 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
                          f"{tuple(lse.shape)}")
     threshold = dropout_threshold(dropout_rate) if dropout_rate > 0.0 else 0
     if not ops.use_kernel(impl, q, k, v, bias, lse, dout):
-        return flash_attention_bwd_plain(q, k, v, bias, lse, dout, causal, dropout_rate, seed)
+        return flash_attention_bwd_plain(q, k, v, bias, lse, dout, causal, dropout_rate, seed,
+                                         head0)
     for t in (q, k, v, bias, lse, dout):
         if not t.is_contiguous():
             raise ValueError("flash_attention_bwd needs contiguous tensors")
@@ -319,7 +326,7 @@ def flash_attention_bwd(q, k, v, bias, lse, dout, causal: bool = False, impl: st
     with ops.launching("flash_bwd", q.device):
         status = fn(dt, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
                     _build.ptr(lse), _build.ptr(dout), n, sq, sk, h, hd, hd ** -0.5, int(causal),
-                    int(seed), threshold, dropout_scale(dropout_rate), _build.ptr(dq),
+                    int(seed), threshold, dropout_scale(dropout_rate), int(head0), _build.ptr(dq),
                     _build.ptr(dk), _build.ptr(dv), _build.ptr(delta),
                     ctypes.c_void_p(None if keep_bits is None else keep_bits.data_ptr()),
                     _build.stream_ptr(q.device))
@@ -334,27 +341,31 @@ class FlashAttention(torch.autograd.Function):
     probabilities; the backward regenerates the keep mask from the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, dropout_rate, seed, impl):
-        out, lse = flash_attention_fwd(q, k, v, bias, causal, impl, dropout_rate, seed)
+    def forward(ctx, q, k, v, bias, causal, dropout_rate, seed, impl, head0):
+        out, lse = flash_attention_fwd(q, k, v, bias, causal, impl, dropout_rate, seed, head0)
         ctx.save_for_backward(q, k, v, bias, lse)
-        ctx.args = (causal, impl, dropout_rate, seed)
+        ctx.args = (causal, impl, dropout_rate, seed, head0)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, lse = ctx.saved_tensors
-        causal, impl, dropout_rate, seed = ctx.args
+        causal, impl, dropout_rate, seed, head0 = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, bias, lse, dout.contiguous(), causal, impl,
-                                         dropout_rate, seed)
-        return dq, dk, dv, None, None, None, None, None
+                                         dropout_rate, seed, head0)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, bias, causal: bool = False, dropout_rate: float = 0.0,
-                    seed: Optional[int] = None, impl: str = "auto") -> torch.Tensor:
+                    seed: Optional[int] = None, impl: str = "auto",
+                    head_offset: int = 0) -> torch.Tensor:
     """Attention output, differentiable in q, k and v through the backward
     kernel. ``seed`` is required when ``dropout_rate`` > 0; without a seed
-    nothing is dropped (the eval path)."""
+    nothing is dropped (the eval path). ``head_offset``: the model's index
+    of the call's first head (a tensor-parallel rank's first head), which
+    the keep mask is keyed on."""
     if seed is None:
         dropout_rate, seed = 0.0, 0
     return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                bias.contiguous(), causal, float(dropout_rate), int(seed), impl)
+                                bias.contiguous(), causal, float(dropout_rate), int(seed), impl,
+                                int(head_offset))

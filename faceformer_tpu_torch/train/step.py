@@ -12,6 +12,13 @@ before the backward, each rank's summed loss is divided by it, and the
 gradients are summed over the ranks. (A mean of the ranks' own means, as
 DDP's averaging gives, differs whenever the ranks hold different numbers of
 label tokens.)
+
+Under tensor parallelism (parallel/tensor.py) the reductions run over the
+data axis: the model ranks of a data rank hold the same rows, the same
+loss and, on every replicated parameter, the same gradient (the layers
+sum what their heads and columns give; ``replicate_grads_`` makes the
+copies equal bit for bit), so the bucket sums each shard and each
+replicated leaf over the data ranks alike.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from faceformer_tpu_torch.config import Config, TrainerConfig
 from faceformer_tpu_torch.parallel import mesh
+from faceformer_tpu_torch.parallel.tensor import replicate_grads_
 from faceformer_tpu_torch.train.loss import summed_cross_entropy
 
 
@@ -47,9 +55,10 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.T
     ``world`` (None: one rank); returns the global (loss, cls_acc) as 0-d
     tensors.
 
-    Two all-reduces, which do nothing at one rank: the label-token count
-    before the backward, then one bucket of every gradient with the rank's
-    loss share and correct-token count after it.
+    Two all-reduces over the data axis, which do nothing at one data rank:
+    the label-token count before the backward, then one bucket of every
+    gradient with the rank's loss share and correct-token count after it;
+    with a model axis, one broadcast of the replicated gradients over it.
 
     A step whose loss is not finite is skipped (reference trainer.py:87-88):
     parameters and the optimizer's state, moments and step count, stay
@@ -70,6 +79,7 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.T
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     shares = torch.stack([loss.detach(), aux["correct_tokens"].float()])
     mesh.all_reduce_(world, grads + [shares])
+    replicate_grads_(model)
     if bool(torch.isfinite(shares[0])):
         optimizer.step()
     return shares[0], shares[1] / (tokens + 1e-10)

@@ -111,9 +111,11 @@ def _prefetch_to_device(batches, put):
 
 
 def rank_generator(seed: int, rank: int) -> torch.Generator:
-    """The dropout and scheduled-sampling stream of a rank: rank 0 keeps the
-    one-rank run's (``seed + 1``), every other rank one seeded from the seed
-    and its rank, so no two ranks' rows share a mask."""
+    """The dropout and scheduled-sampling stream of a data rank: data rank 0
+    keeps the one-rank run's (``seed + 1``), every other one seeded from the
+    seed and its data rank, so no two data ranks' rows share a mask. The
+    model ranks of a data rank share its stream: masks drawn apart would
+    leave their replicated activations apart."""
     if rank == 0:
         return torch.Generator().manual_seed(seed + 1)
     state = np.random.SeedSequence([seed + 1, rank]).generate_state(1, np.uint64)[0]
@@ -189,7 +191,7 @@ class Harness:
         train_ds = self.dataset("train")
         # dropout seeds and the scheduled-sampling draw; a resumed run
         # starts the stream afresh, as the JAX harness does
-        generator = rank_generator(cfg.trainer.seed, world.rank)
+        generator = rank_generator(cfg.trainer.seed, world.data_rank)
         max_epochs = max_epochs or cfg.trainer.max_epochs
         step = state["step"]
         for epoch in range(state["epoch"], max_epochs):
@@ -205,7 +207,7 @@ class Harness:
                 # the step's device work is done when it returns
                 loss, acc = train_step(model, optimizer, batch, generator, cfg, world=world)
                 step_s += time.perf_counter() - t0
-                samples += int(batch["label"].shape[0]) * world.size
+                samples += int(batch["label"].shape[0]) * world.data_size
                 step += 1
                 if logger is not None and step % cfg.trainer.log_every_n_steps == 0:
                     logger.log_scalars(step, {"train_loss": float(loss),

@@ -190,6 +190,54 @@ def test_keep_mask_on_card_equals_plain(cuda_device):
         assert abs(float(got.float().mean()) - 0.8) < 0.01
 
 
+def test_keep_mask_on_card_at_a_head_offset(cuda_device):
+    """The keep mask of heads 4..7 (a tensor-parallel rank's at model axis
+    2 of 8 heads) equals philox_keep_mask's at that offset and heads 4..7
+    of the whole mask, bit for bit."""
+    shape = (2, 4, 220, 218)
+    got = keep_mask_on_card(11, *shape, 0.2, cuda_device, head0=4)
+    assert torch.equal(got, philox_keep_mask(11, *shape, 0.2, device=cuda_device, head0=4))
+    whole = keep_mask_on_card(11, 2, 8, 220, 218, 0.2, cuda_device)
+    assert torch.equal(got, whole[:, 4:]) and not torch.equal(got, whole[:, :4])
+
+
+# (n, sq, sk, causal) of the training calls a tensor-parallel rank makes on
+# its 4 of 8 heads: the causal decoder self-attention, the encoder, the
+# anchor-folded cross-attention, and 512 causal keys (bf16: K2's and K3's
+# tensor-core key-tiled kernels)
+HEAD_OFFSET_SHAPES = [(16, 40, 40, True), (2, 220, 220, False), (1, 8640, 220, False),
+                      (2, 512, 512, True)]
+
+
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd",
+                         [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 3e-2)])
+@pytest.mark.parametrize("n,sq,sk,causal", HEAD_OFFSET_SHAPES)
+def test_flash_kernels_at_a_head_offset_on_card(cuda_device, dtype, tol_fwd, tol_bwd, n, sq,
+                                                sk, causal):
+    """K2 and K3 with dropout on heads 4..7 of 8 (head0 = 4) against their
+    plain versions at that offset, and against heads 4..7 of the call on
+    all 8 heads: the rank applies the whole call's keep mask."""
+    q, k, v, bias, do = flash_case(cuda_device, dtype, n, sq, sk, h=8)
+    half = [t[:, :, 4:].contiguous() for t in (q, k, v, do)]
+    kw = dict(causal=causal, dropout_rate=0.2, seed=41)
+    out, lse = launched("flash_fwd", flash_attention_fwd, *half[:3], bias, head0=4, **kw)
+    out_p, lse_p = flash_attention_fwd(*half[:3], bias, impl="plain", head0=4, **kw)
+    whole, _ = flash_attention_fwd(q, k, v, bias, **kw)
+    assert float((out.float() - out_p.float()).abs().max()) <= tol_fwd
+    assert float((lse - lse_p).abs().max()) <= tol_fwd
+    assert float((out.float() - whole[:, :, 4:].float()).abs().max()) <= tol_fwd
+    unshifted, _ = flash_attention_fwd(*half[:3], bias, **kw)
+    assert not torch.equal(out, unshifted)
+    got = launched("flash_bwd", flash_attention_bwd, *half[:3], bias, lse_p, half[3], head0=4,
+                   **kw)
+    want = flash_attention_bwd(*half[:3], bias, lse_p, half[3], impl="plain", head0=4, **kw)
+    _, lse_w = flash_attention_fwd(q, k, v, bias, impl="plain", **kw)
+    grads_w = flash_attention_bwd(q, k, v, bias, lse_w, do, **kw)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, grads_w):
+        assert rel_err(a, b) <= tol_bwd, (name, rel_err(a, b))
+        assert rel_err(a, c[:, :, 4:].contiguous()) <= tol_bwd, name
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,sq,sk,causal", FLASH_SHAPES)
 def test_flash_dropout_kernel_on_card(cuda_device, dtype, tol, n, sq, sk, causal):

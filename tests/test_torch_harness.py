@@ -188,9 +188,11 @@ def test_resume_runs_the_remaining_epochs(tiny_model_cfg, splits, tmp_path):
 
 def test_harness_refuses_what_is_not_ported(tiny_model_cfg):
     cfg = port_cfg(jax_cfg(tiny_model_cfg))
-    # data parallelism is ported (tests/test_torch_parallel.py); a model axis is not
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_mesh(1, "cpu", model_axis=2)
+    # ranks and the model axis are ported (tests/test_torch_parallel.py,
+    # test_torch_tensor_parallel.py); make_mesh holds JAX's rule on the axis
+    with pytest.raises(ValueError, match="not divisible by model_axis=2"):
+        make_mesh(3, "cpu", model_axis=2)
+    assert make_mesh(1, "cpu", model_axis=1).size == 1
     # the flat SurfaceFormer is ported now: the harness builds it
     flat = Harness(config_from_dict({**config_to_dict(cfg), "model_class": "SurfaceFormer",
                                      "dataset_class": "ABCDataset"}), device="cpu")

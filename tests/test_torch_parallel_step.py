@@ -111,7 +111,8 @@ def test_training_stripe_covers_the_global_batch(hosts):
 
 def test_world_outside_ranks():
     """One rank without a rank environment; more raise and name the two
-    ways to start them; a model axis is not ported."""
+    ways to start them; a rank count the model axis does not divide raises
+    (JAX's rule, mesh.py:29-30)."""
     world = mesh.make_mesh(1, "cpu")
     assert (world.rank, world.size, world.hosts, world.is_writer, world.distributed) == (
         0, 1, 1, True, False)
@@ -119,8 +120,9 @@ def test_world_outside_ranks():
     assert mesh.eval_batch_size(mesh.World(0, 2, 0, 2, torch.device("cpu")), 3) == 2
     with pytest.raises(RuntimeError, match="torchrun"):
         mesh.make_mesh(2, "cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        mesh.make_mesh(2, "cpu", model_axis=2)
+    with pytest.raises(ValueError, match="not divisible by model_axis=2"):
+        mesh.make_mesh(3, "cpu", model_axis=2)
+    assert mesh.make_mesh(1, "cpu", model_axis=1).size == 1
     assert mesh.global_mean(world, [1.0, 2.0]) == 1.5 and mesh.global_sum(world, 3) == 3.0
 
 

@@ -1,6 +1,7 @@
-"""Rank side of the port's multi-rank CPU tests (tests/test_torch_parallel*.py).
+"""Rank side of the port's multi-rank CPU tests (tests/test_torch_parallel*.py,
+tests/test_torch_tensor_parallel.py).
 
-``run_ranks`` starts two gloo ranks on the CPU through the port's own
+``run_ranks`` starts two (or ``ranks``) gloo ranks on the CPU through the port's own
 ``parallel.mesh.spawn`` and has each run the named tasks of a job written
 by the test; each task leaves its results under the job's directory, where
 the test reads them. This module imports nothing of JAX, so the ranks start
@@ -18,11 +19,14 @@ import torch
 from faceformer_tpu_torch.config import config_from_dict
 from faceformer_tpu_torch.data.batching import collate
 from faceformer_tpu_torch.data.dataset import ABCDatasetParallel
-from faceformer_tpu_torch.parallel import mesh
+from faceformer_tpu_torch.decode import greedy_decode_parallel
+from faceformer_tpu_torch.models import layers
+from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+from faceformer_tpu_torch.parallel import mesh, tensor
 from faceformer_tpu_torch.params import grads_to_numpy, params_from_jax, params_to_numpy
 from faceformer_tpu_torch.train.loss import pointer_cross_entropy
 from faceformer_tpu_torch.train.step import make_optimizer, train_step
-from faceformer_tpu_torch.train.trainer import Harness
+from faceformer_tpu_torch.train.trainer import Harness, rank_generator
 
 
 def leaves(tree, path=()):
@@ -160,8 +164,106 @@ def task_load(job) -> None:
                                        "__step": np.asarray(state["step"])})
 
 
+def whole_model(cfg, tree):
+    """The port's anchor-parallel model on the CPU, whole, loaded with a
+    JAX tree."""
+    model = SurfaceFormerParallel(cfg.model, device="cpu")
+    params_from_jax(model, tree)
+    return model
+
+
+def gathered_tree(model, cfg, grads: bool = False) -> dict:
+    """A cut model's parameters (or gradients), gathered over the model
+    group, as the flat JAX-layout dict of a whole model."""
+    whole = tensor.gather_params(model, grads=grads)
+    host = SurfaceFormerParallel(cfg.model, device="cpu")
+    if grads:
+        for name, p in host.named_parameters():
+            p.grad = whole[name]
+        return flat(grads_to_numpy(host))
+    host.load_state_dict(whole)
+    return flat(params_to_numpy(host))
+
+
+def _tp_world(job):
+    return mesh.make_mesh(job["ranks"], "cpu", model_axis=job["model_axis"])
+
+
+def _tp_step(job, cfg, world, fault: bool = False):
+    """One training step of the cut model on the data rank's rows (rows d,
+    d + D, ...): the global loss and the gathered gradients. ``fault``
+    plants a fault: every attention call's head offset left at 0."""
+    rows = list(range(world.data_rank, len(job["batch_samples"]), world.data_size))
+    model = whole_model(cfg, job["tree"])
+    tensor.shard_params_(model, world)
+    generator = (rank_generator(job["seed"], world.data_rank)
+                 if cfg.model.dropout > 0 else None)
+    real = layers.flash_attention
+    if fault:
+        layers.flash_attention = lambda *a, head_offset=0, **k: real(*a, **k)
+    try:
+        loss, _ = train_step(model, make_optimizer(model, cfg.trainer),
+                             _rank_batch(job, cfg, rows), generator, cfg, world=world)
+    finally:
+        layers.flash_attention = real
+    return model, loss, gathered_tree(model, cfg, grads=True)
+
+
+def task_tp(job) -> None:
+    """The model axis at dropout 0: the cut model's decode grids under each
+    engine on the data rank's rows; one training step's loss and gathered
+    gradients; the Adam state cut and gathered back."""
+    cfg = config_from_dict(job["cfg"])
+    world = _tp_world(job)
+    model = whole_model(cfg, job["tree"])
+    tensor.shard_params_(model, world)
+    rows = list(range(world.data_rank, len(job["batch_samples"]), world.data_size))
+    batch = _rank_batch(job, cfg, rows)
+    payload = {f"grid/{mode}": greedy_decode_parallel(model, cfg.model, batch, precision="fp32",
+                                                      mode=mode)["predict"].numpy()
+               for mode in ("reference", "causal_cache", "fused")}
+    payload["__rows"] = np.asarray(rows)
+    payload["__q_shape"] = np.asarray(model.decoder.layers[0].self_attn.q.weight.shape)
+    _, loss, grads = _tp_step(job, cfg, world)
+    payload.update({f"grad/{k}": v for k, v in grads.items()})
+    payload["__loss"] = loss.numpy()
+    # Adam's state of the whole model after one step on every row, cut to
+    # the rank's shards and gathered back
+    whole = whole_model(cfg, job["tree"])
+    opt = make_optimizer(whole, cfg.trainer)
+    out = whole.forward_train(_rank_batch(job, cfg, range(len(job["batch_samples"]))))
+    pointer_cross_entropy(out, cfg.model.token)[0].backward()
+    opt.step()
+    state = opt.state_dict()
+    cut = tensor.shard_opt_state(state, whole, world)
+    back = tensor.gather_opt_state(cut, model)
+    sharded = make_optimizer(model, cfg.trainer)
+    sharded.load_state_dict(cut)
+    for i, (name, p) in enumerate(model.named_parameters()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            payload[f"opt/{name}/{key}/whole"] = state["state"][i][key].numpy()
+            payload[f"opt/{name}/{key}/cut"] = cut["state"][i][key].numpy()
+            payload[f"opt/{name}/{key}/back"] = back["state"][i][key].numpy()
+        payload[f"opt/{name}/shape"] = np.asarray(p.shape)
+        payload[f"opt/{name}/loaded"] = sharded.state_dict()["state"][i]["exp_avg"].numpy()
+    _save(job, "tp", world, payload)
+
+
+def task_tp_dropout(job) -> None:
+    """The model axis with dropout and remat: one step's loss and gathered
+    gradients, and the same under the planted fault."""
+    cfg = config_from_dict(job["cfg_dropout"])
+    world = _tp_world(job)
+    payload = {}
+    for label, fault in (("ok", False), ("fault", True)):
+        _, loss, grads = _tp_step(job, cfg, world, fault=fault)
+        payload.update({f"{label}/{k}": v for k, v in grads.items()})
+        payload[f"__{label}_loss"] = loss.numpy()
+    _save(job, "tp_dropout", world, payload)
+
+
 TASKS = {"fit": task_fit, "eval": task_eval, "uneven": task_uneven, "nan": task_nan,
-         "load": task_load}
+         "load": task_load, "tp": task_tp, "tp_dropout": task_tp_dropout}
 
 
 def load_rank(out_dir: str, name: str, rank: int) -> dict:

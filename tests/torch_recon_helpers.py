@@ -15,7 +15,7 @@ prints one JSON object: the solids, the PLY and OBJ counts and the names
 each exporter dropped. chip_smoke.py's ``ORACLE_LIFTED`` and
 ``ORACLE_DROPPED`` come from
 
-    python -m faceformer_tpu.tools.synthetic_data --root <dir> --num 704 --seed 1 \
+    python -m faceformer_tpu.tools.synthetic_data --root <dir> --num 352 --seed 1 \
         --profile rich --max_edges 216 --max_faces 42 --max_face_len 36
     PYTHONPATH=. python tests/torch_recon_helpers.py --root <dir> --num_cores 4
 """
