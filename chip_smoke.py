@@ -84,8 +84,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
      and K3's tensor-core key-tiled kernels in every decoder
      self-attention, one profiled step); serving with early stop off
      (causal_cache timed at N=32 with a profiled decode, reference at N=4;
-     each engine's fp32 grid through the kernels equal to the plain
-     versions', bf16 grids parting only at near-ties); the command line
+     over the first FLAT_CHECK_STEPS steps each engine's fp32 grid through
+     the kernels equal to the plain versions', bf16 grids parting only at
+     near-ties); the command line
      (a 350-solid direction-token corpus, one epoch of fit with validation
      and a checkpoint, test with causal_cache, predict on four wireframes);
      its profiled causal_cache decode runs the first FLAT_PROFILE_STEPS
@@ -143,7 +144,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
      and K4 launched; then (d) ``parallel.dryrun.dryrun_multichip(4)``,
      four ranks on the card; (e) figures without gates: each rank's
      parameter bytes and peak memory, and the step's model-axis
-     collectives (count, bytes, ms) against one rank's step;
+     collectives (count, bytes, ms) against one rank's step; then the flat
+     SurfaceFormer at the width of configs/synthetic-dirtok-big.yml in the
+     same ranks: (f) fp32, dropout 0, 2 Adam steps: the losses, the first
+     step's gathered gradients and the parameters against one rank's, a
+     rounding control (one rank through the plain versions) and the planted
+     fault read beside them, the step's collectives, parameter bytes and
+     peak memory; (g) bf16 with dropout 0.2, one step: the loss, and the
+     first K2 and K3 call at 512 keys (the decoder self-attention, on the
+     tensor-core key-tiled kernels) against the plain versions at the
+     rank's head offset and at the other rank's; (h) both flat engines'
+     fp32 grids with early stop off over [6]'s FLAT_CHECK_STEPS steps
+     (causal_cache N = 4, reference N = 2) equal to one rank's and to each
+     other's, K1 after the pointer gather;
   10. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
@@ -2229,8 +2242,16 @@ FLAT_DIFF_MAX = 1.0
 # label_seq_length - 1 = 511): reading back the profiler's events of a
 # whole decode (~295,000 kernels and as many host ops) took ~160 s of [6]
 # on the H100's host, and of 128 steps ~43 s; the depth cut to make room
-# for [7]. The timed decode and every check still run all 511 steps
-FLAT_PROFILE_STEPS = 32
+# for [7], and from 32 for [9]
+FLAT_PROFILE_STEPS = 16
+# steps of the flat decodes that [6]'s checks and [9] (h) run (of 511): the
+# bf16 grids through the kernels and through the plain versions, their
+# replays, and the fp32 grids. Past 256, so the reference engine's last
+# bucket (264 keys) still runs K2's key-tiled kernels; the depth cut, with
+# FLAT_PROFILE_STEPS from 32, to make room for [9]'s flat model, whose
+# decodes under the split cost ~85 ms a step on the H100's host (~19 gloo
+# collectives). The timed decodes still run all 511 steps
+FLAT_CHECK_STEPS = 263
 
 
 def flat_replay(model, mc, batch, forced, mode, impl):
@@ -2375,15 +2396,21 @@ def run_flat_serving(model, mc, samples, dev):
     """Both engines of the flat model, early stop off (label_seq_length - 1
     steps): causal_cache timed at N = 32 (tokens/s, launches, one profiled
     decode), reference at N = 4; each engine's grid through the kernels
-    against its grid through the plain versions, equal in fp32 at N = 4,
-    and in bf16 parting only at near-ties (``flat_partings``). The profiled
-    decode runs the first FLAT_PROFILE_STEPS steps. Returns the launches of
-    the timed decodes."""
+    against its grid through the plain versions over the first
+    FLAT_CHECK_STEPS steps, equal in fp32 at N = 4, and in bf16 parting only
+    at near-ties (``flat_partings``). The profiled decode runs the first
+    FLAT_PROFILE_STEPS steps. Returns the launches of the timed decodes."""
     import torch
     from faceformer_tpu_torch import ops
     from faceformer_tpu_torch.decode import greedy_decode_single
 
     steps = mc.label_seq_length - 1
+    checked = dataclasses.replace(mc, label_seq_length=FLAT_CHECK_STEPS + 1)
+
+    def decode(batch, precision, mode, impl):
+        return greedy_decode_single(model, checked, batch, precision=precision, mode=mode,
+                                    early_stop=False, impl=impl)["predict"]
+
     launches = {}
     for mode, n in (("causal_cache", 32), ("reference", 4)):
         batch = flat_batch(samples[:n], mc, dev, labels=False)
@@ -2407,13 +2434,13 @@ def run_flat_serving(model, mc, samples, dev):
                          lambda: greedy_decode_single(model, cut, batch, precision="bf16",
                                                       mode=mode, early_stop=False), top=8)
         t1 = time.perf_counter()
-        plain = model.forward_eval(batch, precision="bf16", mode=mode, early_stop=False,
-                                   impl="plain")["predict"]
+        kernels, plain = (decode(batch, "bf16", mode, impl) for impl in ("auto", "plain"))
         t2 = time.perf_counter()
-        found, stats = flat_partings(model, mc, batch, grid, plain, mode)
+        found, stats = flat_partings(model, checked, batch, kernels, plain, mode)
         t3 = time.perf_counter()
-        print(f"[6] flat engine={mode} bf16 kernels vs plain: cell agreement "
-              f"{float((grid == plain).float().mean()):.6f}, {len(found)} of {n} rows part; "
+        print(f"[6] flat engine={mode} bf16 kernels vs plain, the first {FLAT_CHECK_STEPS} "
+              f"steps: cell agreement {float((kernels == plain).float().mean()):.6f}, "
+              f"{len(found)} of {n} rows part; "
               f"both replays write their engine's grids; at each parting the kernels' and "
               f"the plain logits prefer their own token by "
               f"{', '.join(f'{a:.4g} and {b:.4g}' for a, b in found) or '-'} "
@@ -2430,13 +2457,13 @@ def run_flat_serving(model, mc, samples, dev):
             fail(f"flat {mode} bf16: the kernels' and the plain pointer logits differ by "
                  f"{stats['max']:.4g} on a shared prefix")
         small = {k: v[:4] for k, v in batch.items()}
-        g32 = {impl: model.forward_eval(small, precision="fp32", mode=mode, early_stop=False,
-                                        impl=impl)["predict"] for impl in ("auto", "plain")}
+        g32 = {impl: decode(small, "fp32", mode, impl) for impl in ("auto", "plain")}
         same = torch.equal(g32["auto"], g32["plain"])
-        print(f"[6] flat engine={mode} fp32 N=4: grid through the kernels equals the plain "
-              f"versions' {same}; seconds: the timed and profiled decodes {t1 - t0:.1f}, the "
-              f"plain bf16 decode {t2 - t1:.1f}, the two replays {t3 - t2:.1f}, the fp32 "
-              f"grids {time.perf_counter() - t3:.1f}", flush=True)
+        print(f"[6] flat engine={mode} fp32 N=4, the first {FLAT_CHECK_STEPS} steps: grid "
+              f"through the kernels equals the plain versions' {same}; seconds: the timed and "
+              f"profiled decodes {t1 - t0:.1f}, the bf16 decodes through the kernels and the "
+              f"plain versions {t2 - t1:.1f}, the two replays {t3 - t2:.1f}, the fp32 grids "
+              f"{time.perf_counter() - t3:.1f}", flush=True)
         if not same:
             fail(f"flat {mode} fp32: the kernels' grid differs from the plain versions'")
     return launches
@@ -3394,6 +3421,26 @@ TP_MASK = (TP_ROWS, 4, 220, 220)  # the encoder's keep mask on a rank's 4 of 8 h
 TP_LOSS_MAX = 1e-5
 TP_UPDATE_MAX = 1e-2
 TP_BF16_LOSS_MAX = 1e-2
+# (f)-(h): the flat SurfaceFormer at synthetic-dirtok-big.yml's width, the
+# gates of (a) and (b) but for the second loss (below); (f)'s planted fault
+# must move the fp32 losses by more than TP_FLAT_FAULT_MIN, relative; (h)'s
+# reference engine decodes TP_REFERENCE_ROWS rows, causal_cache TP_ROWS
+TP_FLAT_FAULT_MIN = 0.1
+# the first step's gathered gradients within TP_FLAT_GRAD_MAX of one rank's,
+# each leaf relative to its largest magnitude (grad_errors). The first
+# step's loss is held to TP_LOSS_MAX, the second's to TP_FLAT_LOSS_MAX:
+# Adam's first update moves every parameter by lr (3e-4 here) by its
+# gradient's sign, so gradients of rounding size, whose signs part between
+# the split and one rank, move the second loss further than the first.
+# Readings (NVIDIA H100 80GB HBM3, 700 W): the first loss 6.0e-7, the
+# second 1.44e-5-1.48e-5, after 61 gradient elements, none above 1.5e-5
+# of its leaf's largest, changed sign; gradients 6.5e-5-7.7e-5 a leaf at
+# most (kernels against plain: 4.3e-5, [6]); the rounding control (one
+# rank through the plain versions, whose rounding parts in the attention
+# alone) 1.2e-7, then 2.9e-7-4.9e-7; the planted fault 0.156
+TP_FLAT_GRAD_MAX = 1e-4
+TP_FLAT_LOSS_MAX = 1e-4
+TP_FLAT_KEYS = 512  # the decoder self-attention's keys: label_seq_length - 1, padded to 8
 
 
 def tp_setup(seed, dev, precision: str, dropout: float):
@@ -3418,11 +3465,35 @@ def tp_setup(seed, dev, precision: str, dropout: float):
     return cfg, model, batch
 
 
-def tp_steps(model, cfg, batch, seed: int, world=None, timed=None):
-    """TP_STEPS Adam steps (with dropout, the stream of data rank 0): their
+def tp_flat_setup(seed, dev, precision: str, dropout: float):
+    """(f)-(h)'s configuration, model and batch: synthetic-dirtok-big.yml as
+    written (d 512, 8 heads, FFN 1024, 6+6 layers, S 116, label_seq_length
+    512, direction tokens, lr 3e-4) in ``precision`` at ``dropout``; TP_ROWS
+    seeded direction-token solids ([6]'s flat_samples). The same in every
+    process that calls it."""
+    import torch
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
+    from faceformer_tpu_torch.params import jitter_affine_
+
+    cfg = load_config(FLAT_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=dropout),
+        trainer=dataclasses.replace(cfg.trainer, precision=precision, scheduled_sampling=0.0))
+    gen = torch.Generator().manual_seed(seed + 13)
+    model = SurfaceFormer(cfg.model, generator=gen, device=dev)
+    jitter_affine_(model, gen)
+    samples = flat_samples(np.random.default_rng(seed + 13), cfg.model, TP_ROWS)
+    return cfg, model, flat_batch(samples, cfg.model, dev)
+
+
+def tp_steps(model, cfg, batch, seed: int, world=None, timed=None, steps: int = TP_STEPS,
+             grads=None, impl: str = "auto"):
+    """``steps`` Adam steps (with dropout, the stream of data rank 0): their
     losses and the parameters after them (on the host, gathered over the
-    model group); then TP_TIMED more steps, each bracketed by ``timed``'s
-    calls when given (their ms a step and the peak bytes go into it)."""
+    model group; the first step's gradients into ``grads`` when given);
+    then TP_TIMED more steps, each bracketed by ``timed``'s calls when given
+    (their ms a step and the peak bytes go into it)."""
     import torch
     from faceformer_tpu_torch.parallel.tensor import gather_params
     from faceformer_tpu_torch.train.step import make_optimizer, train_step
@@ -3430,8 +3501,12 @@ def tp_steps(model, cfg, batch, seed: int, world=None, timed=None):
 
     gen = rank_generator(seed, 0) if cfg.model.dropout > 0 else None
     optimizer = make_optimizer(model, cfg.trainer)
-    losses = [float(train_step(model, optimizer, batch, gen, cfg, world=world)[0])
-              for _ in range(TP_STEPS)]
+    losses = []
+    for step in range(steps):
+        losses.append(float(train_step(model, optimizer, batch, gen, cfg, impl=impl,
+                                       world=world)[0]))
+        if grads is not None and step == 0:
+            grads.update({k: v.cpu() for k, v in gather_params(model, grads=True).items()})
     params = {k: v.cpu() for k, v in gather_params(model).items()}
     if timed is not None:
         torch.cuda.synchronize()
@@ -3464,9 +3539,30 @@ def tp_grids(model, mc, batch) -> tuple:
     return grids, peak
 
 
+def tp_flat_grids(model, mc, batch) -> tuple:
+    """(h): the flat engines' fp32 grids with early stop off over the first
+    FLAT_CHECK_STEPS steps, as [6]'s checks run them: causal_cache on every
+    row, reference on the first TP_REFERENCE_ROWS; and each decode's
+    seconds."""
+    import torch
+    from faceformer_tpu_torch.decode import greedy_decode_single
+
+    checked = dataclasses.replace(mc, label_seq_length=FLAT_CHECK_STEPS + 1)
+    grids, seconds = {}, {}
+    for mode, n in (("causal_cache", TP_ROWS), ("reference", TP_REFERENCE_ROWS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grids[mode] = greedy_decode_single(model, checked, {k: v[:n] for k, v in batch.items()},
+                                           precision="fp32", mode=mode,
+                                           early_stop=False)["predict"].cpu()
+        seconds[mode] = time.perf_counter() - t0
+    return grids, seconds
+
+
 def tp_reference(seed: int, out_dir: str) -> dict:
-    """One rank: (a)'s and (b)'s steps, (c)'s grids; the parameters after
-    (a)'s steps go to ``out_dir`` for the ranks."""
+    """One rank: (a)'s and (b)'s steps, (c)'s grids, and the flat model's
+    (f) and (g) steps and (h) grids; the parameters after (a)'s and (f)'s
+    steps go to ``out_dir`` for the ranks."""
     import torch
 
     dev = torch.device("cuda")
@@ -3482,22 +3578,53 @@ def tp_reference(seed: int, out_dir: str) -> dict:
         torch.cuda.empty_cache()
     cfg, model, batch = tp_setup(seed, dev, "fp32", 0.0)
     grids, ref["decode_peak"] = tp_grids(model, cfg.model, batch)
-    torch.save({"params": params, "grids": grids, "ref": ref}, os.path.join(out_dir, "want.pt"))
+    del model, batch
+    torch.cuda.empty_cache()
+    flat, flat_grads = {}, {}
+    for label, precision, dropout, steps in (("fp32", "fp32", 0.0, TP_STEPS),
+                                             ("bf16", "bf16", 0.2, 1)):
+        cfg, model, batch = tp_flat_setup(seed, dev, precision, dropout)
+        flat[label] = {"param_bytes": sum(nbytes(p) for p in model.parameters())}
+        fp32 = label == "fp32"
+        losses, after = tp_steps(model, cfg, batch, seed, steps=steps,
+                                 timed=flat[label] if fp32 else None,
+                                 grads=flat_grads if fp32 else None)
+        flat[label]["losses"] = losses
+        if fp32:
+            flat_params = after
+        del model, batch
+        torch.cuda.empty_cache()
+    # the rounding control: the same fp32 steps through the kernels' plain
+    # versions, whose losses part from the kernels' by fp32 rounding alone
+    cfg, model, batch = tp_flat_setup(seed, dev, "fp32", 0.0)
+    flat["plain_losses"], _ = tp_steps(model, cfg, batch, seed, impl="plain")
+    del model, batch
+    torch.cuda.empty_cache()
+    cfg, model, batch = tp_flat_setup(seed, dev, "fp32", 0.0)
+    flat_grids, flat["decode_s"] = tp_flat_grids(model, cfg.model, batch)
+    ref["flat"] = flat
+    torch.save({"params": params, "grids": grids, "ref": ref, "flat_params": flat_params,
+                "flat_grads": flat_grads, "flat_grids": flat_grids},
+               os.path.join(out_dir, "want.pt"))
     del model, batch
     torch.cuda.empty_cache()
     return ref
 
 
 def tp_rank(seed: int, out_dir: str) -> None:
-    """A rank of [9] (a)-(c), started by ``parallel.mesh.spawn`` on a grid
-    of one data rank and two model ranks: (a) fp32 steps, the
-    model-axis collectives counted and timed, K2's and K3's heads and head
-    offset a call recorded, then the same steps under the planted fault
-    (each rank adds the row-parallel biases before the sum); (b) bf16 steps
-    with dropout, the first K2 and K3 call of them held against their plain
+    """A rank of [9], started by ``parallel.mesh.spawn`` on a grid of one
+    data rank and two model ranks: (a) fp32 steps, the model-axis
+    collectives counted and timed, K2's and K3's heads and head offset a
+    call recorded, then the same steps under the planted fault (each rank
+    adds the row-parallel biases before the sum); (b) bf16 steps with
+    dropout, the first K2 and K3 call of them held against their plain
     versions at the rank's head offset and at the other rank's (the planted
     fault), and the card's keep mask of the rank's heads; (c) the three
-    engines' fp32 grids. Everything it read goes to ``out_dir``."""
+    engines' fp32 grids; then the flat model: (f) and (g) as (a) and (b),
+    (g)'s held call the first at TP_FLAT_KEYS keys (the decoder
+    self-attention, on the tensor-core key-tiled kernels), and (h) both
+    flat engines' fp32 grids. Everything it read goes to ``out_dir``."""
+    import contextlib
     import inspect
 
     import torch
@@ -3520,25 +3647,31 @@ def tp_rank(seed: int, out_dir: str) -> None:
         out["gloo_bf16"] = f"refuses bf16 CUDA tensors: {exc!r}"
 
     heads = {"flash_fwd": set(), "flash_bwd": set()}  # (heads, head0) of each call
-    captured = {}  # kind: (arguments, results) of (b)'s first call with dropout
+    # kind: (arguments, results, its tensor-core key-tiled launches) of the
+    # first call with dropout at min_keys keys or more
+    captured, min_keys = {}, {"n": 0}
     coll = {"calls": 0, "ms": 0.0, "bytes": 0}
     timed_run = {"on": False}
     real = {"fwd": flash.flash_attention_fwd, "bwd": flash.flash_attention_bwd,
             "all_reduce": dist.all_reduce, "all_gather": dist.all_gather,
-            "broadcast": dist.broadcast}
+            "broadcast": dist.broadcast, "row": layers.row_linear}
 
     def record(kind, fn):
         signature = inspect.signature(fn)
+        tiled = f"{kind}_tiled_tc"
 
         def call(*args, **kwargs):
             bound = signature.bind(*args, **kwargs)
             bound.apply_defaults()
             a = bound.arguments
             heads[kind].add((int(a["q"].shape[2]), int(a["head0"])))
+            before = ops.LAUNCHES[tiled]
             result = fn(*args, **kwargs)
-            if a["dropout_rate"] > 0 and kind not in captured:
+            if (a["dropout_rate"] > 0 and kind not in captured
+                    and a["k"].shape[1] >= min_keys["n"]):
                 captured[kind] = ({k: v.clone() if torch.is_tensor(v) else v
-                                   for k, v in a.items()}, tuple(r.clone() for r in result))
+                                   for k, v in a.items()}, tuple(r.clone() for r in result),
+                                  ops.LAUNCHES[tiled] - before)
             return result
         return call
 
@@ -3556,12 +3689,66 @@ def tp_rank(seed: int, out_dir: str) -> None:
             return result
         return call
 
-    flash.flash_attention_fwd = record("flash_fwd", real["fwd"])
-    flash.flash_attention_bwd = record("flash_bwd", real["bwd"])
-    dist.all_reduce = timed(real["all_reduce"], lambda a: a[0])
-    dist.all_gather = timed(real["all_gather"], lambda a: a[1])
-    dist.broadcast = timed(real["broadcast"], lambda a: a[0])
-    try:
+    @contextlib.contextmanager
+    def recorded():
+        heads["flash_fwd"].clear()
+        heads["flash_bwd"].clear()
+        captured.clear()
+        coll.update(calls=0, ms=0.0, bytes=0)
+        flash.flash_attention_fwd = record("flash_fwd", real["fwd"])
+        flash.flash_attention_bwd = record("flash_bwd", real["bwd"])
+        dist.all_reduce = timed(real["all_reduce"], lambda a: a[0])
+        dist.all_gather = timed(real["all_gather"], lambda a: a[1])
+        dist.broadcast = timed(real["broadcast"], lambda a: a[0])
+        try:
+            yield
+        finally:
+            flash.flash_attention_fwd, flash.flash_attention_bwd = real["fwd"], real["bwd"]
+            dist.all_reduce, dist.all_gather = real["all_reduce"], real["all_gather"]
+            dist.broadcast = real["broadcast"]
+
+    def planted(lin, x, shard):  # the bias added on every rank, before the sum
+        if shard is None:
+            return real["row"](lin, x, shard)
+        return tensor.reduce_from_model(
+            x @ lin.weight.to(x.dtype).t() + lin.bias.to(x.dtype), shard)
+
+    def fault_steps(setup, params_want, init):
+        """The fp32 steps under the planted fault: (losses, parameter
+        distance)."""
+        layers.row_linear = planted
+        try:
+            cfg, model, batch = setup(seed, dev, "fp32", 0.0)
+            tensor.shard_params_(model, world)
+            losses, got = tp_steps(model, cfg, batch, seed, world)
+        finally:
+            layers.row_linear = real["row"]
+        del model
+        torch.cuda.empty_cache()
+        return losses, dp_distance(got, params_want, init)
+
+    def offset_readings():
+        """The captured K2 and K3 call against the plain versions at its
+        head offset ('err') and at the other rank's ('fault')."""
+        args, (o, lse), launches = captured["flash_fwd"]
+        other = (world.model_axis - 1 - world.model_rank) * args["q"].shape[2]
+        fwd = {"shape": list(args["q"].shape), "keys": int(args["k"].shape[1]),
+               "head0": args["head0"], "tiled_tc_launches": launches}
+        for label, head0 in (("err", args["head0"]), ("fault", other)):
+            o_p, lse_p = real["fwd"](**{**args, "impl": "plain", "head0": head0})
+            fwd[label] = max(float((o.float() - o_p.float()).abs().max()),
+                             float((lse - lse_p).abs().max()))
+        args, grads, launches = captured["flash_bwd"]
+        bwd = {"shape": list(args["q"].shape), "keys": int(args["k"].shape[1]),
+               "head0": args["head0"], "tiled_tc_launches": launches}
+        for label, head0 in (("err", args["head0"]), ("fault", other)):
+            want_g = real["bwd"](**{**args, "impl": "plain", "head0": head0})
+            errs = [rel_errors(a, b) for a, b in zip(grads, want_g)]
+            bwd[label] = [max(e[0] for e in errs), max(e[1] for e in errs)]
+        captured.clear()
+        return fwd, bwd
+
+    with recorded():
         cfg, model, batch = tp_setup(seed, dev, "fp32", 0.0)
         init = {k: p.detach().cpu() for k, p in model.named_parameters()}
         tensor.shard_params_(model, world)
@@ -3578,24 +3765,7 @@ def tp_rank(seed: int, out_dir: str) -> None:
                                    if k.endswith("attn.k.bias"))
         del model, got
         torch.cuda.empty_cache()
-
-        def planted(lin, x, shard):  # the bias added on every rank, before the sum
-            if shard is None:
-                return real_row(lin, x, shard)
-            return tensor.reduce_from_model(
-                x @ lin.weight.to(x.dtype).t() + lin.bias.to(x.dtype), shard)
-
-        real_row = layers.row_linear
-        layers.row_linear = planted
-        try:
-            cfg, model, batch = tp_setup(seed, dev, "fp32", 0.0)
-            tensor.shard_params_(model, world)
-            out["fault_distance"] = dp_distance(tp_steps(model, cfg, batch, seed, world)[1],
-                                                want["params"], init)
-        finally:
-            layers.row_linear = real_row
-        del model
-        torch.cuda.empty_cache()
+        out["fault_distance"] = fault_steps(tp_setup, want["params"], init)[1]
 
         # (b) bf16, dropout 0.2
         cfg, model, batch = tp_setup(seed, dev, "bf16", 0.2)
@@ -3605,27 +3775,10 @@ def tp_rank(seed: int, out_dir: str) -> None:
         out["bf16_losses"], _ = tp_steps(model, cfg, batch, seed, world, timed=bf16)
         out["bf16_step_ms"], out["bf16_peak"] = bf16["step_ms"], bf16["peak"]
         out["launches"].update(ops.LAUNCHES)
-    finally:
-        flash.flash_attention_fwd, flash.flash_attention_bwd = real["fwd"], real["bwd"]
-        dist.all_reduce, dist.all_gather = real["all_reduce"], real["all_gather"]
-        dist.broadcast = real["broadcast"]
     out["heads"] = {k: sorted(v) for k, v in heads.items()}
     # (b)'s first K2 and K3 call with dropout, as the training step made it,
     # against the plain versions at its head offset and at the other rank's
-    args, (o, lse) = captured["flash_fwd"]
-    other = (world.model_axis - 1 - world.model_rank) * args["q"].shape[2]
-    out["offset_fwd"] = {"shape": list(args["q"].shape), "head0": args["head0"]}
-    for label, head0 in (("err", args["head0"]), ("fault", other)):
-        o_p, lse_p = real["fwd"](**{**args, "impl": "plain", "head0": head0})
-        out["offset_fwd"][label] = max(float((o.float() - o_p.float()).abs().max()),
-                                       float((lse - lse_p).abs().max()))
-    args, grads = captured["flash_bwd"]
-    out["offset_bwd"] = {"shape": list(args["q"].shape), "head0": args["head0"]}
-    for label, head0 in (("err", args["head0"]), ("fault", other)):
-        want_g = real["bwd"](**{**args, "impl": "plain", "head0": head0})
-        errs = [rel_errors(a, b) for a, b in zip(grads, want_g)]
-        out["offset_bwd"][label] = [max(e[0] for e in errs), max(e[1] for e in errs)]
-    del captured, args, o, lse, grads, o_p, lse_p, want_g
+    out["offset_fwd"], out["offset_bwd"] = offset_readings()
     from faceformer_tpu_torch.ops.flash import keep_mask_on_card, philox_keep_mask
 
     n, h, sq, sk = TP_MASK
@@ -3650,12 +3803,194 @@ def tp_rank(seed: int, out_dir: str) -> None:
     out["grids_equal"] = {m: bool(torch.equal(g, want["grids"][m])) for m, g in grids.items()}
     out["grids_agree"] = {m: float((g == want["grids"][m]).float().mean())
                           for m, g in grids.items()}
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # (f) the flat model, fp32, dropout 0
+    flat = out["flat"] = {}
+    with recorded():
+        cfg, model, batch = tp_flat_setup(seed, dev, "fp32", 0.0)
+        init = {k: p.detach().cpu() for k, p in model.named_parameters()}
+        tensor.shard_params_(model, world)
+        flat["shard_bytes"] = sum(nbytes(p) for p in model.parameters())
+        ops.reset_launches()
+        grads = {}
+        flat["losses"], got = tp_steps(model, cfg, batch, seed, world, timed=timed_run,
+                                       grads=grads)
+        flat["launches_f"] = dict(ops.LAUNCHES)
+        flat["grad_err"] = grad_errors(grads, want["flat_grads"])
+        out["launches"].update(ops.LAUNCHES)
+        flat["step_ms"], flat["peak"] = timed_run["step_ms"], timed_run["peak"]
+        flat["collectives"] = dict(coll)
+        flat["distance"] = dp_distance(got, want["flat_params"], init)
+        flat["checksum"] = [float(v.double().sum()) for v in got.values()]
+        del model, got
+        torch.cuda.empty_cache()
+        flat["fault_losses"], flat["fault_distance"] = fault_steps(
+            tp_flat_setup, want["flat_params"], init)
+        flat["heads_f"] = {k: sorted(v) for k, v in heads.items()}
+
+    # (g) bf16, dropout 0.2, one step; the first K2 and K3 call at the
+    # decoder self-attention's keys held
+    with recorded():
+        min_keys["n"] = TP_FLAT_KEYS
+        cfg, model, batch = tp_flat_setup(seed, dev, "bf16", 0.2)
+        tensor.shard_params_(model, world)
+        ops.reset_launches()
+        flat["bf16_losses"], _ = tp_steps(model, cfg, batch, seed, world, steps=1)
+        flat["launches_g"] = dict(ops.LAUNCHES)
+        out["launches"].update(ops.LAUNCHES)
+        flat["heads_g"] = {k: sorted(v) for k, v in heads.items()}
+    flat["offset_fwd"], flat["offset_bwd"] = offset_readings()
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # (h) both flat engines' fp32 grids, early stop off
+    cfg, model, batch = tp_flat_setup(seed, dev, "fp32", 0.0)
+    tensor.shard_params_(model, world)
+    ops.reset_launches()
+    grids, flat["decode_s"] = tp_flat_grids(model, cfg.model, batch)
+    flat["launches_h"] = dict(ops.LAUNCHES)
+    out["launches"].update(ops.LAUNCHES)
+    flat["grids"] = grids
+    flat["grids_equal"] = {m: bool(torch.equal(g, want["flat_grids"][m]))
+                           for m, g in grids.items()}
+    flat["grids_agree"] = {m: float((g == want["flat_grids"][m]).float().mean())
+                           for m, g in grids.items()}
     out["launches"] = dict(out["launches"])
     torch.save(out, os.path.join(out_dir, f"tp_rank{world.rank}.pt"))
 
 
+def grad_errors(got: dict, want: dict) -> dict:
+    """Each leaf's largest gradient difference relative to the leaf's
+    largest magnitude, but the attention key biases' (their gradient is 0
+    but for rounding): the three largest; the elements whose sign parts
+    between the two (Adam's first update moves each by lr, by that sign)
+    and the largest of their magnitudes in ``want`` relative to the leaf's;
+    and the key biases' largest magnitude."""
+    errs, flips, flip_max = {}, 0, 0.0
+    for k, w in want.items():
+        if k.endswith("attn.k.bias"):
+            continue
+        scale = max(float(w.abs().max()), 1e-30)
+        errs[k] = float((got[k] - w).abs().max()) / scale
+        flipped = got[k].sign() != w.sign()
+        flips += int(flipped.sum())
+        if flipped.any():
+            flip_max = max(flip_max, float(w[flipped].abs().max()) / scale)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    return {"worst": worst, "sign_flips": flips, "flip_max": flip_max,
+            "key_bias_max": max(float(got[k].abs().max()) for k in got
+                                if k.endswith("attn.k.bias"))}
+
+
+def tp_flat_report(ref: dict, got: list) -> None:
+    """Prints and gates (f)-(h), the flat model under the model axis."""
+    import torch
+
+    want = ref["flat"]
+    fl = [g["flat"] for g in got]
+    r0 = fl[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want["fp32"]["losses"]))
+    fault_err = min(max(abs(a - b) / abs(b) for a, b in zip(f["fault_losses"],
+                                                            want["fp32"]["losses"]))
+                    for f in fl)
+    bf16_err = max(abs(a - b) / abs(b) for a, b in zip(r0["bf16_losses"],
+                                                        want["bf16"]["losses"]))
+    control = [abs(a - b) / abs(b) for a, b in zip(want["plain_losses"],
+                                                   want["fp32"]["losses"])]
+    tp_steps_err = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], want["fp32"]["losses"])]
+    coll = [f["collectives"] for f in fl]
+    share = [round(c["ms"] / f["step_ms"], 3) for c, f in zip(coll, fl)]
+    ranks_equal = {m: bool(torch.equal(fl[0]["grids"][m], fl[1]["grids"][m]))
+                   for m in fl[0]["grids"]}
+    print(f"[9] (f) the flat SurfaceFormer at synthetic-dirtok-big.yml's width (d 512, 8 heads, "
+          f"FFN 1024, 6+6 layers, S 116, label_seq_length 512, direction tokens), 2 ranks at "
+          f"model_axis 2 against 1, fp32, N={TP_ROWS}, dropout 0, {TP_STEPS} Adam steps: losses "
+          f"{r0['losses']} vs {want['fp32']['losses']} (largest relative difference "
+          f"{loss_err:.3g}; a step {[f'{x:.3g}' for x in tp_steps_err]}, gates {TP_LOSS_MAX} "
+          f"then {TP_FLAT_LOSS_MAX}); "
+          f"the rounding control, 1 rank through the plain versions: losses "
+          f"{want['plain_losses']}, relative difference a step {[f'{x:.3g}' for x in control]}; "
+          f"the first step's gathered gradients against 1 rank's, largest relative difference "
+          f"per leaf (gate {TP_FLAT_GRAD_MAX}): {[f['grad_err'] for f in fl]}; parameter "
+          f"distance {[f['distance'] for f in fl]} (gate {TP_UPDATE_MAX}); planted fault "
+          f"(row-parallel bias added on both ranks): losses {[f['fault_losses'] for f in fl]}, "
+          f"largest "
+          f"relative difference {fault_err:.3g} (> {TP_FLAT_FAULT_MIN}), distance "
+          f"{[f['fault_distance'] for f in fl]}; the ranks' gathered parameters equal: "
+          f"{fl[0]['checksum'] == fl[1]['checksum']}; K2/K3 (heads, head0) a call "
+          f"{[f['heads_f'] for f in fl]}; launches a rank {[f['launches_f'] for f in fl]}",
+          flush=True)
+    print(f"[9] (f) the flat TP step's model-axis collectives a rank {coll} over {TP_TIMED} "
+          f"step(s) (the card synchronized around each) against the step's ms "
+          f"{[round(f['step_ms'], 1) for f in fl]} ({share} of it) and 1 rank's "
+          f"{want['fp32']['step_ms']:.1f} ms; a rank's parameters "
+          f"{[f['shard_bytes'] for f in fl]} B vs 1 rank {want['fp32']['param_bytes']}; peak "
+          f"bytes over the timed step {[f['peak'] for f in fl]} vs 1 rank "
+          f"{want['fp32']['peak']}", flush=True)
+    print(f"[9] (g) flat bf16, dropout 0.2, 1 step: loss {r0['bf16_losses']} vs "
+          f"{want['bf16']['losses']} (relative difference {bf16_err:.3g}, gate "
+          f"{TP_BF16_LOSS_MAX}); K2/K3 (heads, head0) a call {[f['heads_g'] for f in fl]}; "
+          f"launches a rank {[f['launches_g'] for f in fl]}; the first K2 and K3 call at "
+          f"{TP_FLAT_KEYS} keys against the plain versions at its head0 ('err') and at the other "
+          f"rank's ('fault'; K2 max abs of out and lse, gate {K2_BF16_TOL}; K3 relative [max, "
+          f"mean], gates {K3_BF16_MAX}, {K3_BF16_MEAN}): K2 {[f['offset_fwd'] for f in fl]}, K3 "
+          f"{[f['offset_bwd'] for f in fl]}", flush=True)
+    print(f"[9] (h) flat fp32 grids, early stop off, the first {FLAT_CHECK_STEPS} steps, "
+          f"against 1 rank's (causal_cache N={TP_ROWS}, reference N={TP_REFERENCE_ROWS}): equal "
+          f"{[f['grids_equal'] for f in fl]}, agreement "
+          f"{[f['grids_agree'] for f in fl]}; the two ranks' grids equal {ranks_equal}; seconds "
+          f"{[f['decode_s'] for f in fl]} vs 1 rank {want['decode_s']}; launches a "
+          f"rank {[f['launches_h'] for f in fl]}", flush=True)
+    steps = FLAT_CHECK_STEPS
+    for g, f in zip(got, fl):
+        offset = [[4, 4 * g["rank"]]]
+        for stage in ("heads_f", "heads_g"):
+            if {k: [list(x) for x in v] for k, v in f[stage].items()} != {
+                    "flash_fwd": offset, "flash_bwd": offset}:
+                fail(f"[9] ({stage[-1]}) rank {g['rank']}: (heads, head0) a call {f[stage]}")
+        fwd, bwd = f["offset_fwd"], f["offset_bwd"]
+        if fwd["keys"] != TP_FLAT_KEYS or bwd["keys"] != TP_FLAT_KEYS or not (
+                fwd["tiled_tc_launches"] == 1 and bwd["tiled_tc_launches"] == 1):
+            fail(f"[9] (g) rank {g['rank']}: the held call did not run the tensor-core "
+                 f"key-tiled kernels at {TP_FLAT_KEYS} keys ({fwd}, {bwd})")
+        if not (fwd["err"] <= K2_BF16_TOL and bwd["err"][0] <= K3_BF16_MAX
+                and bwd["err"][1] <= K3_BF16_MEAN):
+            fail(f"[9] (g) rank {g['rank']}: K2/K3 at head0 {fwd['head0']} part from their "
+                 "plain versions")
+        if not (fwd["fault"] >= 0.1 and bwd["fault"][0] >= 0.1):
+            fail(f"[9] (g) rank {g['rank']}: the plain versions at the other rank's head "
+                 "offset read within 0.1")
+        for stage, kernels in (("launches_f", ("flash_fwd", "flash_bwd")),
+                               ("launches_g", ("flash_fwd", "flash_bwd", "flash_fwd_tiled_tc",
+                                               "flash_bwd_tiled_tc")),
+                               ("launches_h", ("flash_fwd", "pointer_argmax"))):
+            for k in kernels:
+                if f[stage][k] <= 0:
+                    fail(f"[9] ({stage[-1]}) rank {g['rank']}: {k} not launched")
+        if f["launches_h"]["pointer_argmax"] != 2 * steps:
+            fail(f"[9] (h) rank {g['rank']}: {f['launches_h']['pointer_argmax']} K1 launches, "
+                 f"two decodes of {steps} steps imply {2 * steps}")
+        if not all(f["grids_equal"].values()):
+            fail(f"[9] (h) rank {g['rank']}: a flat grid differs from one rank's")
+    if not all(ranks_equal.values()):
+        fail("[9] (h): the two model ranks' flat grids differ")
+    if (tp_steps_err[0] > TP_LOSS_MAX or max(tp_steps_err[1:]) > TP_FLAT_LOSS_MAX
+            or max(f["distance"] for f in fl) > TP_UPDATE_MAX):
+        fail("[9] (f): two model ranks do not train the flat model as one rank does")
+    if fl[0]["checksum"] != fl[1]["checksum"] or fl[0]["losses"] != fl[1]["losses"]:
+        fail("[9] (f): the two model ranks disagree")
+    if max(f["grad_err"]["worst"][0][1] for f in fl) > TP_FLAT_GRAD_MAX:
+        fail("[9] (f): the flat model's gathered gradients part from one rank's")
+    if fault_err <= TP_FLAT_FAULT_MIN:
+        fail("[9] (f): the planted fault moves the flat losses too little")
+    if bf16_err > TP_BF16_LOSS_MAX:
+        fail("[9] (g): the flat bf16 loss with dropout parts from one rank's")
+
+
 def run_tp_phase(seed: int) -> dict:
-    """Phase 9. Returns the launches of (a)-(c) on both ranks."""
+    """Phase 9. Returns the launches of (a)-(c) and (f)-(h) on both ranks."""
     import torch
     from faceformer_tpu_torch.parallel import mesh
     from faceformer_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -3663,6 +3998,7 @@ def run_tp_phase(seed: int) -> dict:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as out_dir:
         ref = tp_reference(seed, out_dir)
+        ref_s = time.perf_counter() - t_phase
         t0 = time.perf_counter()
         mesh.spawn(2, tp_rank, seed, out_dir)
         ranks_s = time.perf_counter() - t0
@@ -3703,7 +4039,8 @@ def run_tp_phase(seed: int) -> dict:
           f"{ref['fp32']['step_ms']:.1f}, bf16 {[round(g['bf16_step_ms'], 1) for g in got]} vs "
           f"{ref['bf16']['step_ms']:.1f}; the fp32 steps' model-axis collectives a rank "
           f"{[g['collectives'] for g in got]} over {TP_TIMED} steps (the card synchronized "
-          f"around each); ranks {ranks_s:.1f} s", flush=True)
+          f"around each); seconds: one rank's runs {ref_s:.1f}, the ranks' {ranks_s:.1f} (with "
+          f"(f)-(h))", flush=True)
     for g in got:
         offset = {k: [[4, 4 * g["rank"]]] for k in ("flash_fwd", "flash_bwd")}
         if g["backend"] != "gloo" or {k: [list(x) for x in v] for k, v in
@@ -3737,6 +4074,7 @@ def run_tp_phase(seed: int) -> dict:
         fail("[9] (a): the planted fault reads within the gate")
     if bf16_err > TP_BF16_LOSS_MAX:
         fail("[9] (b): the bf16 losses with dropout part from one rank's")
+    tp_flat_report(ref, got)
     t0 = time.perf_counter()
     line = dryrun_multichip(4)
     print(f"[9] (d) dryrun_multichip(4), four ranks on the card: {time.perf_counter() - t0:.1f} s",

@@ -34,7 +34,8 @@ product over the model ranks and gathers the pointer before the argmax;
 "fused" gathers the decoder's weights once a decode (JAX runs it under
 ``shard_map`` over the data axis with replicated weights,
 __graft_entry__.py:159-176) and runs K4 on the whole rows, the same on
-each model rank. The grids are the one-rank grids.
+each model rank. The grids are the one-rank grids. The flat engines
+below do the same as "reference" and "causal_cache".
 
 Flat model (``greedy_decode_single``), the "reference" and "causal_cache"
 engines (the JAX package has no fused engine for it). Its stops: with
@@ -368,7 +369,7 @@ def greedy_decode_single(
                         normalize_before=cfg.normalize_before,
                         tgt_key_padding_mask=prefix_pad, memory_key_padding_mask=padded_mask,
                         impl=impl)
-                    pointer_t = L.linear(model.project, out[:, step])  # (N, E)
+                    pointer_t = project_pointer(model, out[:, step])  # (N, E)
                     nxt = masked_argmax(memory, pointer_t, padded_mask, impl=impl)
                     nxt, eos = _single_next(nxt, eos, tok, retire_rows)
                     tokens[:, step + 1] = nxt
@@ -378,7 +379,8 @@ def greedy_decode_single(
         # causal_cache
         head_dim = cfg.num_model // cfg.num_head
         cross_k, cross_v = _cross_kv(model, memory, pos, cfg.num_head)  # (Lyr, N, S, H, hd)
-        cache_shape = (n, t_max, cfg.num_head, head_dim)
+        heads = L.local_heads(model.decoder.layers[0].self_attn, head_dim)
+        cache_shape = (n, t_max, heads, head_dim)
         sk = [torch.zeros(cache_shape, dtype=dtype, device=dev)
               for _ in range(cfg.num_decoder_layers)]
         sv = [torch.zeros(cache_shape, dtype=dtype, device=dev)
@@ -389,7 +391,7 @@ def greedy_decode_single(
             x = gather_memory_rows(memory, tokens[:, step:step + 1])  # (N, 1, E)
             out = _incremental_decoder_step(model, cfg, x, query_pos[step:step + 1], step,
                                             sk, sv, cross_k, cross_v, padded_mask)
-            pointer_t = L.linear(model.project, out[:, 0])  # (N, E)
+            pointer_t = project_pointer(model, out[:, 0])  # (N, E)
             nxt = masked_argmax(memory, pointer_t, padded_mask, impl=impl)
             nxt, eos = _single_next(nxt, eos, tok, retire_rows)
             tokens[:, step + 1] = nxt

@@ -25,6 +25,7 @@ from faceformer_tpu_torch.models.common import (
     pad_target_time,
     padded_query_pos,
     pointer_logits,
+    project_pointer,
 )
 
 
@@ -52,7 +53,11 @@ class SurfaceFormer(PointerNetwork):
         scheduled-sampling draw; None runs without either. Returns
         embedding (N, 4+L, E), pointer (N, T-1, E), label (N, T-1), the
         shifted targets. ``impl="plain"`` runs the flash kernels' plain
-        versions, for comparisons."""
+        versions, for comparisons. A model cut over the model axis
+        (parallel/tensor.py) runs the same pass on its rank's shards; its
+        outputs are whole on every rank, and the model ranks of a data rank,
+        given the data rank's ``generator``, draw the same scheduled-sampling
+        mask over the same gathered pointer."""
         cfg = self.cfg
         dtype = compute_dtype(precision)
         label = batch["label"].to(torch.int32)
@@ -75,7 +80,7 @@ class SurfaceFormer(PointerNetwork):
                 causal=True, tgt_key_padding_mask=tgt_key_padding,
                 memory_key_padding_mask=padded_mask, dropout_rate=cfg.dropout, seeds=seeds,
                 remat=cfg.remat, remat_policy=cfg.remat_policy, impl=impl)
-            return L.linear(self.project, out)
+            return project_pointer(self, out)
 
         if scheduled_sampling_ratio > 0.0 and generator is not None:
             # model predictions without gradient, mixed with the gold tokens

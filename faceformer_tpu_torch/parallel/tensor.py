@@ -100,15 +100,13 @@ def _check_divisible(cfg, model_axis: int) -> None:
 
 @torch.no_grad()
 def shard_params_(model, world: World) -> None:
-    """Cut a whole model, the same on every rank, down to the rank's shards
-    in place, and give its sharded modules the rank's ``Shard``. Nothing to
-    do at model_axis 1. The optimizer is made after this (or its state cut
-    with ``shard_opt_state``)."""
+    """Cut a whole model (either ``PointerNetwork``: both have the same
+    ``encoder``, ``decoder`` and ``project``), the same on every rank, down
+    to the rank's shards in place, and give its sharded modules the rank's
+    ``Shard``. Nothing to do at model_axis 1. The optimizer is made after
+    this (or its state cut with ``shard_opt_state``)."""
     if world.model_axis == 1:
         return
-    if not getattr(model, "is_parallel", False):
-        raise NotImplementedError("tensor parallelism is ported for SurfaceFormerParallel; the "
-                                  "flat SurfaceFormer runs on the data axis only")
     if getattr(model, "shard", None) is not None:
         raise ValueError("the model is sharded already")
     _check_divisible(model.cfg, world.model_axis)

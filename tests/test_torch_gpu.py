@@ -635,15 +635,15 @@ FLAT_CFG = ModelConfig(num_points_per_line=8, num_lines=40, label_seq_length=521
                        token=TokenConfig(DIR0=4, DIR1=5, length=6))
 
 
-def flat_case(dev, n=2, seed=13):
+def flat_case(dev, n=2, seed=13, cfg=FLAT_CFG):
     """A seeded flat model (biases and LayerNorms jittered) and a batch of
     seeded direction-token-like labels: SOS, [edge, DIR] pairs and SEPs,
     EOS, then PAD."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
-    model = SurfaceFormer(FLAT_CFG, generator=gen, device=dev)
+    model = SurfaceFormer(cfg, generator=gen, device=dev)
     jitter_affine_(model, gen)
-    tok, lines, t = FLAT_CFG.token, FLAT_CFG.num_lines, FLAT_CFG.label_seq_length
+    tok, lines, t = cfg.token, cfg.num_lines, cfg.label_seq_length
     num = rng.integers(10, lines + 1, n)
     label = np.zeros((n, t), np.int32)
     for i in range(n):
@@ -652,7 +652,7 @@ def flat_case(dev, n=2, seed=13):
         body[1::2] = rng.integers(tok.DIR0, tok.DIR1 + 1, len(body[1::2]))
         body[rng.random(size) < 0.05] = tok.SEP
         label[i, 0], label[i, 1:size + 1], label[i, size + 1] = tok.SOS, body, tok.EOS
-    batch = {"input": rng.uniform(-1, 1, (n, lines, FLAT_CFG.num_points_per_line, 2)
+    batch = {"input": rng.uniform(-1, 1, (n, lines, cfg.num_points_per_line, 2)
                                   ).astype(np.float32),
              "input_mask": np.arange(lines)[None] >= num[:, None],
              "label": label, "label_mask": label == tok.PAD}
@@ -700,6 +700,95 @@ def test_flat_decode_kernels_equal_plain_on_card(cuda_device, mode):
             assert ops.LAUNCHES["pointer_argmax"] == FLAT_CFG.label_seq_length - 1
             assert ops.LAUNCHES["flash_fwd"] > 0
     assert torch.equal(grids["auto"], grids["plain"])
+
+
+# the flat model at synthetic-dirtok-big.yml's width (8 heads of 64, FFN
+# 1024), one layer a stack: its decoder self-attention runs at 512 keys
+# (label_seq_length 513), on a rank's 4 heads
+FLAT_TP_CFG = ModelConfig(num_points_per_line=8, num_lines=40, label_seq_length=513,
+                          num_model=512, num_head=8, num_feedforward=1024, num_encoder_layers=1,
+                          num_decoder_layers=1, dropout=0.2,
+                          token=TokenConfig(DIR0=4, DIR1=5, length=6))
+
+
+def _flat_tp_rank(out_dir):
+    """A rank of two at model_axis 2 sharing the card: the cut flat
+    model's first bf16 training forward and backward with dropout, its
+    first K2 and K3 call at 512 keys recorded (heads, head0, the launches it
+    made) and held against the plain versions at the rank's head0 and at the
+    other rank's."""
+    import inspect
+
+    from faceformer_tpu_torch.ops import flash
+    from faceformer_tpu_torch.parallel import mesh, tensor
+    from faceformer_tpu_torch.train.loss import pointer_cross_entropy
+    from faceformer_tpu_torch.train.trainer import rank_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = mesh.make_mesh(2, "cuda", model_axis=2)
+    model, batch = flat_case(world.device, cfg=FLAT_TP_CFG)
+    tensor.shard_params_(model, world)
+    real = {"fwd": flash.flash_attention_fwd, "bwd": flash.flash_attention_bwd}
+    tiled = {"fwd": "flash_fwd_tiled_tc", "bwd": "flash_bwd_tiled_tc"}
+    first = {}
+
+    def record(kind):
+        signature = inspect.signature(real[kind])
+
+        def call(*args, **kwargs):
+            a = signature.bind(*args, **kwargs)
+            a.apply_defaults()
+            a = a.arguments
+            before = ops.LAUNCHES[tiled[kind]]
+            result = real[kind](*args, **kwargs)
+            if a["k"].shape[1] == 512 and kind not in first:
+                first[kind] = ({k: v.clone() if torch.is_tensor(v) else v for k, v in a.items()},
+                               tuple(r.clone() for r in result),
+                               ops.LAUNCHES[tiled[kind]] - before)
+            return result
+        return call
+
+    flash.flash_attention_fwd, flash.flash_attention_bwd = record("fwd"), record("bwd")
+    try:
+        out = model.forward_train(batch, generator=rank_generator(3, 0), precision="bf16")
+        pointer_cross_entropy(out, FLAT_TP_CFG.token)[0].backward()
+    finally:
+        flash.flash_attention_fwd, flash.flash_attention_bwd = real["fwd"], real["bwd"]
+    got = {}
+    for kind, (args, result, launches) in first.items():
+        heads = int(args["q"].shape[2])
+        other = (1 - world.model_rank) * heads
+        got[kind] = {"heads": heads, "head0": args["head0"], "launches": launches,
+                     "dropout_rate": args["dropout_rate"]}
+        for label, head0 in (("err", args["head0"]), ("fault", other)):
+            want = real[kind](**{**args, "impl": "plain", "head0": head0})
+            if kind == "fwd":
+                err = max(float((result[0].float() - want[0].float()).abs().max()),
+                          float((result[1] - want[1]).abs().max()))
+            else:
+                err = max(rel_err(a, b) for a, b in zip(result, want))
+            got[kind][label] = err
+    torch.save({"rank": world.model_rank, "calls": got},
+               f"{out_dir}/flat_tp_rank{world.rank}.pt")
+
+
+def test_flat_tensor_parallel_forward_at_a_head_offset_on_card(cuda_device, tmp_path):
+    """The flat model's first bf16 training pass under a two-rank split
+    (the model-path twin of test_flash_kernels_at_a_head_offset_on_card):
+    its decoder self-attention at 512 keys launches K2's and K3's
+    tensor-core key-tiled kernels on each rank's 4 heads at head0 0 and 4,
+    within 2e-2 and 3e-2 of their plain versions on the same call, and at
+    the other rank's head0 the plain versions read >= 0.1 off."""
+    from faceformer_tpu_torch.parallel import mesh
+
+    mesh.spawn(2, _flat_tp_rank, str(tmp_path))
+    for rank in (0, 1):
+        got = torch.load(tmp_path / f"flat_tp_rank{rank}.pt")
+        fwd, bwd = got["calls"]["fwd"], got["calls"]["bwd"]
+        for call in (fwd, bwd):
+            assert (call["heads"], call["head0"], call["launches"]) == (4, 4 * rank, 1), call
+            assert call["dropout_rate"] == FLAT_TP_CFG.dropout and call["fault"] >= 0.1, call
+        assert fwd["err"] <= 2e-2 and bwd["err"] <= 3e-2, got
 
 
 def test_wrappers_launch_on_their_tensors_card(cuda_device):

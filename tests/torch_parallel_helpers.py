@@ -1,5 +1,5 @@
 """Rank side of the port's multi-rank CPU tests (tests/test_torch_parallel*.py,
-tests/test_torch_tensor_parallel.py).
+tests/test_torch_tensor_parallel.py, tests/test_torch_tensor_parallel_flat.py).
 
 ``run_ranks`` starts two (or ``ranks``) gloo ranks on the CPU through the port's own
 ``parallel.mesh.spawn`` and has each run the named tasks of a job written
@@ -16,12 +16,14 @@ import sys
 import numpy as np
 import torch
 
+from faceformer_tpu_torch import decode
 from faceformer_tpu_torch.config import config_from_dict
 from faceformer_tpu_torch.data.batching import collate
-from faceformer_tpu_torch.data.dataset import ABCDatasetParallel
-from faceformer_tpu_torch.decode import greedy_decode_parallel
+from faceformer_tpu_torch.data.dataset import ABCDataset, ABCDatasetParallel
+from faceformer_tpu_torch.decode import greedy_decode_parallel, greedy_decode_single
 from faceformer_tpu_torch.models import layers
 from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+from faceformer_tpu_torch.models.surfaceformer import SurfaceFormer
 from faceformer_tpu_torch.parallel import mesh, tensor
 from faceformer_tpu_torch.params import grads_to_numpy, params_from_jax, params_to_numpy
 from faceformer_tpu_torch.train.loss import pointer_cross_entropy
@@ -102,8 +104,9 @@ def task_eval(job) -> None:
             json.dump(results, f)
 
 
-def _rank_batch(job, cfg, rows):
-    ds = ABCDatasetParallel.from_samples(job["batch_samples"], cfg.model)
+def _rank_batch(job, cfg, rows, flat: bool = False):
+    dataset = ABCDataset if flat else ABCDatasetParallel
+    ds = dataset.from_samples(job["batch_samples"], cfg.model)
     batch = collate([ds[i] for i in rows])
     return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()
             if not isinstance(v, (list, str))}
@@ -164,10 +167,10 @@ def task_load(job) -> None:
                                        "__step": np.asarray(state["step"])})
 
 
-def whole_model(cfg, tree):
-    """The port's anchor-parallel model on the CPU, whole, loaded with a
-    JAX tree."""
-    model = SurfaceFormerParallel(cfg.model, device="cpu")
+def whole_model(cfg, tree, flat: bool = False):
+    """The port's anchor-parallel model (the flat one with ``flat``) on the
+    CPU, whole, loaded with a JAX tree."""
+    model = (SurfaceFormer if flat else SurfaceFormerParallel)(cfg.model, device="cpu")
     params_from_jax(model, tree)
     return model
 
@@ -176,7 +179,7 @@ def gathered_tree(model, cfg, grads: bool = False) -> dict:
     """A cut model's parameters (or gradients), gathered over the model
     group, as the flat JAX-layout dict of a whole model."""
     whole = tensor.gather_params(model, grads=grads)
-    host = SurfaceFormerParallel(cfg.model, device="cpu")
+    host = type(model)(cfg.model, device="cpu")
     if grads:
         for name, p in host.named_parameters():
             p.grad = whole[name]
@@ -189,12 +192,13 @@ def _tp_world(job):
     return mesh.make_mesh(job["ranks"], "cpu", model_axis=job["model_axis"])
 
 
-def _tp_step(job, cfg, world, fault: bool = False):
-    """One training step of the cut model on the data rank's rows (rows d,
-    d + D, ...): the global loss and the gathered gradients. ``fault``
-    plants a fault: every attention call's head offset left at 0."""
+def _tp_step(job, cfg, world, fault: bool = False, flat: bool = False):
+    """One training step of the cut model (the flat one with ``flat``) on
+    the data rank's rows (rows d, d + D, ...): the global loss and the
+    gathered gradients. ``fault`` plants a fault: every attention call's
+    head offset left at 0."""
     rows = list(range(world.data_rank, len(job["batch_samples"]), world.data_size))
-    model = whole_model(cfg, job["tree"])
+    model = whole_model(cfg, job["tree"], flat)
     tensor.shard_params_(model, world)
     generator = (rank_generator(job["seed"], world.data_rank)
                  if cfg.model.dropout > 0 else None)
@@ -203,7 +207,7 @@ def _tp_step(job, cfg, world, fault: bool = False):
         layers.flash_attention = lambda *a, head_offset=0, **k: real(*a, **k)
     try:
         loss, _ = train_step(model, make_optimizer(model, cfg.trainer),
-                             _rank_batch(job, cfg, rows), generator, cfg, world=world)
+                             _rank_batch(job, cfg, rows, flat), generator, cfg, world=world)
     finally:
         layers.flash_attention = real
     return model, loss, gathered_tree(model, cfg, grads=True)
@@ -262,8 +266,52 @@ def task_tp_dropout(job) -> None:
     _save(job, "tp_dropout", world, payload)
 
 
+def task_tp_flat(job) -> None:
+    """The model axis on the flat SurfaceFormer, for each label flavor of
+    ``job["flat"]`` (its config dicts, tree and samples): both engines'
+    grids on the data rank's rows, with the causal_cache's self-attention
+    cache shape; one step's loss and gathered gradients at dropout 0; then
+    with dropout, remat and scheduled sampling, and the same under the
+    planted fault (the keep masks' head offset left at 0)."""
+    world = _tp_world(job)
+    payload = {}
+    for flavor in job["flat"]:
+        sub, tag = {**job, **flavor}, flavor["flavor"]
+        cfg = config_from_dict(sub["cfg"])
+        model = whole_model(cfg, sub["tree"], flat=True)
+        tensor.shard_params_(model, world)
+        rows = list(range(world.data_rank, len(sub["batch_samples"]), world.data_size))
+        batch = _rank_batch(sub, cfg, rows, flat=True)
+        real, caches = decode._incremental_decoder_step, []
+
+        def spy(model, cfg, x, qpos_t, step, self_k, *rest):
+            caches.append(tuple(self_k[0].shape))
+            return real(model, cfg, x, qpos_t, step, self_k, *rest)
+
+        decode._incremental_decoder_step = spy
+        try:
+            for mode in ("reference", "causal_cache"):
+                payload[f"{tag}/grid/{mode}"] = greedy_decode_single(
+                    model, cfg.model, batch, precision="fp32", mode=mode)["predict"].numpy()
+        finally:
+            decode._incremental_decoder_step = real
+        payload[f"{tag}/__cache_shapes"] = np.asarray(sorted(set(caches)))
+        payload[f"{tag}/__rows"] = np.asarray(rows)
+        payload[f"{tag}/__project_shape"] = np.asarray(model.project.weight.shape)
+        _, loss, grads = _tp_step(sub, cfg, world, flat=True)
+        payload.update({f"{tag}/grad/{k}": v for k, v in grads.items()})
+        payload[f"{tag}/__loss"] = loss.numpy()
+        cfg = config_from_dict(sub["cfg_dropout"])
+        for label, fault in (("ok", False), ("fault", True)):
+            _, loss, grads = _tp_step(sub, cfg, world, fault=fault, flat=True)
+            payload.update({f"{tag}/{label}/{k}": v for k, v in grads.items()})
+            payload[f"{tag}/__{label}_loss"] = loss.numpy()
+    _save(job, "tp_flat", world, payload)
+
+
 TASKS = {"fit": task_fit, "eval": task_eval, "uneven": task_uneven, "nan": task_nan,
-         "load": task_load, "tp": task_tp, "tp_dropout": task_tp_dropout}
+         "load": task_load, "tp": task_tp, "tp_dropout": task_tp_dropout,
+         "tp_flat": task_tp_flat}
 
 
 def load_rank(out_dir: str, name: str, rank: int) -> dict:
