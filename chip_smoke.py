@@ -157,7 +157,18 @@ Phases (each prints one or more lines; any failure exits non-zero):
      fp32 grids with early stop off over [6]'s FLAT_CHECK_STEPS steps
      (causal_cache N = 4, reference N = 2) equal to one rank's and to each
      other's, K1 after the pointer gather;
-  10. one JSON summary of the kernels, the card line, and the result line.
+  10. the C++ host path (the threaded JSON loader and the geometry kernel
+     of csrc/host/, built by g++ in [1]) on the corpora of [5]
+     (synthetic-big, parallel labels), [6] (synthetic-dirtok-big, flat
+     direction-token labels) and [8] (step-native-big), each while its
+     phase holds it: every split built through the native loader and
+     through the Python packer, timed (construction plus one pass), every
+     item's arrays equal (``input`` bit for bit) and the raw JSONs eval
+     reads equal; over [5]'s validation split, ``resample_edge_batch`` and
+     the metrics' enclosedness filter a sample each way, outputs equal.
+     The fits of [5], [6] and [8] load through the native path (the
+     datasets' default);
+  11. one JSON summary of the kernels, the card line, and the result line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
@@ -2469,9 +2480,10 @@ def run_flat_serving(model, mc, samples, dev):
     return launches
 
 
-def run_flat_cli():
+def run_flat_cli(host: dict):
     """The flat model through the command lines, each in a subprocess:
-    ``tools.synthetic_data`` writes the cut direction-token corpus; ``main``
+    ``tools.synthetic_data`` writes the cut direction-token corpus ([10]
+    checks the host path on it into ``host``); ``main``
     fits one epoch (validation with causal_cache and a checkpoint after it)
     and tests ``last``; ``tools.predict`` decodes four test wireframes.
     Returns (launch counts summed over the runs, numbers)."""
@@ -2493,6 +2505,8 @@ def run_flat_cli():
                 split.append(sum(1 for line in f if line.strip()))
         if tuple(split) != FLAT_SPLIT:
             fail(f"flat corpus split {split}, expected {FLAT_SPLIT}")
+        host["synthetic-dirtok-big"] = check_host_loader("[6]'s synthetic-dirtok-big corpus",
+                                                         syn, FLAT_CONFIG)
         base = ("root_dir", syn, "trainer.name", "flat")
         log = os.path.join(tmp, "logs", "flat")
         last = os.path.join(log, "v0", "checkpoints", "last")
@@ -2595,7 +2609,7 @@ def time_pointer_one_row(rng, dev, n, s, e):
     return row
 
 
-def run_flat_phase(seed, rng, dev):
+def run_flat_phase(seed, rng, dev, host: dict):
     """Phase 6. Returns (launches of the flat main paths, max bf16 errors by
     kernel, the timed rows the summary adds to K1, K2 and K3)."""
     import collections
@@ -2663,7 +2677,7 @@ def run_flat_phase(seed, rng, dev):
     print(f"[6] serving took {time.perf_counter() - t0:.1f} s", flush=True)
     del model, batch
     torch.cuda.empty_cache()
-    cli_launches, _ = run_flat_cli()
+    cli_launches, _ = run_flat_cli(host)
     total.update(cli_launches)
     print(f"[6] the flat phase took {time.perf_counter() - t_phase:.1f} s; launches "
           f"{json.dumps({k: v for k, v in total.items() if v})}", flush=True)
@@ -3351,12 +3365,15 @@ def build_step_corpus(tmp: str) -> tuple:
     return root, secs
 
 
-def run_corpus_phase() -> dict:
-    """Phase 8. Returns the launches of (d)'s command lines."""
+def run_corpus_phase(host: dict) -> dict:
+    """Phase 8 ([10] checks the host path on its corpus into ``host``).
+    Returns the launches of (d)'s command lines."""
     total = collections.Counter()
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_step_") as tmp:
         root, secs = build_step_corpus(tmp)
+        host["step-native-big"] = check_host_loader("[8]'s step-native-big corpus", root,
+                                                    CORPUS_CONFIG)
         base = ("root_dir", root, "trainer.name", "smoke")
         log = os.path.join(tmp, "logs", "smoke", "step")
         last = os.path.join(log, "checkpoints", "last")
@@ -3399,6 +3416,136 @@ def run_corpus_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the C++ host path (data/native_loader.py, geometry/native.py)
+# ---------------------------------------------------------------------------
+
+HOST_SPLITS = ("train", "valid", "test")
+HOST_KEYS = ("input", "input_mask", "num_input", "label", "label_mask")
+HOST_REPEATS = 20  # passes over [5]'s validation split when timing the two host kernels
+
+
+def check_host_loader(label: str, root: str, config_path: str) -> dict:
+    """[10] on one corpus while its phase holds it: each split of the
+    config built with impl="native" (the threaded C++ loader) and with
+    impl="plain" (the Python packer), construction plus one pass of
+    ``__getitem__`` timed each way. Gates: the native path packs every
+    file, every item's arrays are equal (``input`` bit for bit as float32)
+    and so are the raw JSONs at every index eval reads (valid, test).
+    Returns the numbers."""
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.train.trainer import DATASET_REGISTRY
+
+    t_call = time.perf_counter()
+    cfg = load_config(config_path)
+    cls = DATASET_REGISTRY[cfg.dataset_class]
+    keys = HOST_KEYS + ("num_faces" if cls._parallel else "num_label",)
+    secs = {"native": 0.0, "plain": 0.0}
+    sizes = []
+    for split in HOST_SPLITS:
+        built = {}
+        for impl in ("native", "plain"):
+            t0 = time.perf_counter()
+            ds = cls(root, list(getattr(cfg, f"datasets_{split}")), cfg.model, impl=impl)
+            items = [ds[i] for i in range(len(ds))]
+            secs[impl] += time.perf_counter() - t0
+            built[impl] = (ds, items)
+        (ds, nat), (plain_ds, plain) = built["native"], built["plain"]
+        sizes.append(len(ds))
+        if ds._packed is None or ds._native_failed:
+            fail(f"[10] {label} {split}: the native loader did not pack every file "
+                 f"(failed {sorted(ds._native_failed)})")
+        if len(nat) != len(plain):
+            fail(f"[10] {label} {split}: {len(nat)} native items, {len(plain)} plain")
+        for i, (a, b) in enumerate(zip(nat, plain)):
+            for key in keys:
+                x, y = np.asarray(a[key]), np.asarray(b[key])
+                if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                    fail(f"[10] {label} {split} item {i} ({a['name']}): {key} differs "
+                         f"between the native and the plain path")
+        if split != "train" and [ds.raw_datas[i] for i in range(len(ds))] != plain_ds.raw_datas:
+            fail(f"[10] {label} {split}: raw_datas differ between the native and the plain path")
+    n = sum(sizes)
+    numbers = {"samples": n, "splits": sizes, "native_s": secs["native"],
+               "plain_s": secs["plain"], "native_samples_per_s": n / secs["native"],
+               "plain_samples_per_s": n / secs["plain"],
+               "check_s": time.perf_counter() - t_call}
+    print(f"[10] {label}: train/valid/test {sizes}, {', '.join(keys)} equal (input bit for "
+          f"bit), raw_datas of valid and test equal; construction plus one pass: native "
+          f"{secs['native']:.4f} s ({numbers['native_samples_per_s']:.1f} samples/s, "
+          f"{os.cpu_count()} host cores), plain {secs['plain']:.4f} s "
+          f"({numbers['plain_samples_per_s']:.1f} samples/s)", flush=True)
+    return numbers
+
+
+def time_host_kernels(root: str, config_path: str) -> dict:
+    """[10] over [5]'s validation split: ``resample_edge_batch`` a sample
+    through the host library and through the numpy loop, and the metrics'
+    enclosedness filter a sample (edges flattened once, one batch call for
+    the predicted faces and one for the label faces, the label faces
+    standing in for both) against the Python predicate's two calls. Gates:
+    equal outputs. Returns ms a sample each way."""
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.data.dataset import parse_splits_list
+    from faceformer_tpu_torch.geometry.native import (
+        filter_faces_by_encloseness_batch,
+        flatten_edges,
+    )
+    from faceformer_tpu_torch.geometry.sampling import resample_edge_batch
+    from faceformer_tpu_torch.post_processing import filter_faces_by_encloseness
+
+    cfg = load_config(config_path)
+    mc, tol = cfg.model, cfg.post_process.enclosedness_tol
+    raws = []
+    for name in parse_splits_list(root, list(cfg.datasets_valid)):
+        with open(os.path.join(root, name)) as f:
+            raws.append(json.load(f))
+    faces = [[(t, tuple(i for lp in loops for i in lp)) for t, loops in raw["faces_indices"]]
+             for raw in raws]
+
+    def resample(impl):
+        return [resample_edge_batch(raw["edges"], mc.num_lines, mc.num_points_per_line,
+                                    impl=impl) for raw in raws]
+
+    def native_filter():
+        out = []
+        for raw, fs in zip(raws, faces):
+            flat = flatten_edges(raw["edges"])
+            out.append((filter_faces_by_encloseness_batch(raw["edges"], fs, tol, flat),
+                        filter_faces_by_encloseness_batch(raw["edges"], fs, tol, flat)))
+        return out
+
+    def plain_filter():
+        return [(filter_faces_by_encloseness(raw["edges"], fs, tol),
+                 filter_faces_by_encloseness(raw["edges"], fs, tol))
+                for raw, fs in zip(raws, faces)]
+
+    ms, outs = {}, {}
+    for name, fn in (("resample_native", lambda: resample("native")),
+                     ("resample_plain", lambda: resample("plain")),
+                     ("enclosedness_native", native_filter),
+                     ("enclosedness_plain", plain_filter)):
+        outs[name] = fn()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPEATS):
+            fn()
+        ms[name] = 1e3 * (time.perf_counter() - t0) / (HOST_REPEATS * len(raws))
+    if any(a.tobytes() != b.tobytes()
+           for a, b in zip(outs["resample_native"], outs["resample_plain"])):
+        fail("[10] resample_edge_batch: the host library and the numpy loop differ")
+    if outs["enclosedness_native"] != outs["enclosedness_plain"]:
+        fail("[10] the enclosedness filter: the batch call and the Python predicate differ")
+    edges = sum(len(raw["edges"]) for raw in raws) / len(raws)
+    n_faces = sum(len(fs) for fs in faces) / len(faces)
+    print(f"[10] [5]'s validation split ({len(raws)} samples, {edges:.1f} edges and "
+          f"{n_faces:.1f} faces a sample, {HOST_REPEATS} passes), ms a sample: "
+          f"resample_edge_batch native {ms['resample_native']:.4f}, plain "
+          f"{ms['resample_plain']:.4f}; enclosedness filter (2 calls) native "
+          f"{ms['enclosedness_native']:.4f}, plain {ms['enclosedness_plain']:.4f}; outputs "
+          f"equal", flush=True)
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -4128,7 +4275,7 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"[1] device {kind} count={torch.cuda.device_count()} nvidia-smi: {smi}", flush=True)
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all(_build.SOURCES + (_build.HOST,))  # nvcc and g++ at once
     print(f"[1] built {built} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in _build.SOURCES:
         with open(_build.log_path(name)) as f:
@@ -4320,9 +4467,14 @@ def main() -> int:
     cli_launches, cli_numbers = run_cli_phase(train_rates, syn)
     for k, v in cli_launches.items():
         total[k] += v
+    # phase 10 on [5]'s corpus; [6] and [8] run it on theirs
+    t0 = time.perf_counter()
+    host = {"synthetic-big": check_host_loader("[5]'s synthetic-big corpus", syn, CLI_CONFIG),
+            "host_kernels_ms": time_host_kernels(syn, CLI_CONFIG)}
+    host["synthetic-big"]["check_s"] = time.perf_counter() - t0
 
     # phase 6: the flat model at the synthetic-dirtok-big width
-    flat_launches, flat_err, flat_rows = run_flat_phase(args.seed, rng, dev)
+    flat_launches, flat_err, flat_rows = run_flat_phase(args.seed, rng, dev, host)
     for k, v in flat_launches.items():
         total[k] += v
     for k, v in flat_err.items():
@@ -4358,7 +4510,7 @@ def main() -> int:
 
     # phase 8: the corpus pipeline, then one epoch at the step-native-big width
     torch.cuda.empty_cache()
-    for k, v in run_corpus_phase().items():
+    for k, v in run_corpus_phase(host).items():
         total[k] += v
 
     # phase 9: tensor parallelism over the model axis
@@ -4366,7 +4518,11 @@ def main() -> int:
     for k, v in run_tp_phase(args.seed).items():
         total[k] += v
 
-    # phase 10
+    print(f"[10] the host path on {nvidia_smi()}, {os.cpu_count()} host cores, "
+          f"{sum(v['check_s'] for k, v in host.items() if 'check_s' in v):.1f} s in all: "
+          f"{json.dumps(host)}", flush=True)
+
+    # phase 11
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
@@ -4383,7 +4539,7 @@ def main() -> int:
                                        for label in ("flat-decoder-self", LONG_TIMED[0])}
     summary["kernels"][5]["shapes"] = {label: flat_rows["flash_bwd"][label]
                                        for label in ("flat-decoder-self", LONG_TIMED[0])}
-    print(f"[10] the script took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[11] the script took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,16 +6,20 @@ module names and public layouts (memory (N, S, E), grids (N, F, T), masks
 with True = padded) so each part can be held against its JAX twin, and it
 imports nothing of it. Plain tensor code is PyTorch; every Pallas kernel on
 the ported path is a hand-written CUDA C++ kernel under ``csrc/``, built
-with nvcc at first use (``ops/_build.py``).
+with nvcc at first use (``ops/_build.py``). The JAX package's host-side C++
+(the threaded JSON loader and the geometry kernel) is copied under
+``csrc/host/`` and built with g++ at first use.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise.
 
 Ported so far (both models, serving and training):
   - config, post_processing, geometry/ (fixtures and solids included):
-    copies of the JAX package's numpy modules (all but geometry/native)
+    copies of the JAX package's numpy modules; geometry/native, the bridge
+    to the host library (resampling, batch enclosedness)
   - data/: packing (both label layouts), batching, ABCDataset,
-    ABCDatasetParallel
+    ABCDatasetParallel, native_loader (the threaded C++ loader behind
+    the datasets)
   - models/: layers (with every remat policy), embedding, encoder pass,
     SurfaceFormer (flat), SurfaceFormerParallel
   - parallel/: data parallelism over torch.distributed ranks

@@ -21,13 +21,16 @@ from faceformer_tpu_torch.config import ModelConfig, TokenConfig
 from faceformer_tpu_torch.geometry.sampling import resample_edge_batch
 
 
-def pack_input_edges(edges: Sequence, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+def pack_input_edges(edges: Sequence, cfg: ModelConfig,
+                     impl: str = "native") -> Dict[str, np.ndarray]:
     """Edges -> (L, P, D) float input + (L,) bool padding mask (True = pad).
 
     Mask semantics match the reference (data.py:68-70): True marks padded
     rows, which downstream becomes the attention key-padding mask.
+    ``impl`` picks the resampler (``resample_edge_batch``).
     """
-    inputs = resample_edge_batch(edges, cfg.num_lines, cfg.num_points_per_line, cfg.point_dim)
+    inputs = resample_edge_batch(edges, cfg.num_lines, cfg.num_points_per_line, cfg.point_dim,
+                                 impl=impl)
     input_mask = np.ones(cfg.num_lines, dtype=bool)
     input_mask[: len(edges)] = False
     return {"input": inputs, "input_mask": input_mask, "num_input": len(edges)}

@@ -13,6 +13,12 @@ and no process loads a partial file.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` as an int; ``check`` raises on non-zero.
+
+The host library ``HOST`` (the threaded JSON loader and the geometry
+kernel, ``csrc/host/*.cc``) is built the same way, by g++ with the flags
+``GXX_FLAGS``, into ``BUILD_DIR/libfaceformer_host.so``; it is stale when
+any of its sources is newer, and a missing g++ or a failed compile raises
+with the compiler's output. ``geometry/native.py`` binds it.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ SOURCES = ("pointer", "flash", "flash_bwd", "decode_step")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+HOST = "faceformer_host"
+GXX = "g++"
+GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -44,22 +54,42 @@ def nvcc() -> str:
     return path
 
 
+def gxx() -> str:
+    path = shutil.which(GXX)
+    if path is None:
+        raise RuntimeError(f"{GXX} not found on PATH: the host library "
+                           "(csrc/host/*.cc) cannot be built")
+    return path
+
+
 def lib_path(name: str) -> str:
-    """The built shared library of ``csrc/<name>.cu``."""
+    """The built shared library of ``csrc/<name>.cu`` (or of ``HOST``)."""
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
 def log_path(name: str) -> str:
-    """nvcc's output for ``name`` (the -Xptxas -v register/spill lines)."""
+    """The compiler's output for ``name`` (nvcc's -Xptxas -v register/spill
+    lines)."""
     return os.path.join(BUILD_DIR, f"{name}.log")
+
+
+def _deps(name: str) -> List[str]:
+    if name == HOST:
+        return sorted(glob.glob(os.path.join(CSRC, "host", "*.cc")))
+    return [os.path.join(CSRC, f"{name}.cu")] + glob.glob(os.path.join(CSRC, "*.cuh"))
+
+
+def _command(name: str, out: str) -> List[str]:
+    if name == HOST:
+        return [gxx(), *GXX_FLAGS, "-o", out, *_deps(name), "-lpthread"]
+    return [nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
 
 
 def _stale(name: str) -> bool:
     lib = lib_path(name)
     if not os.path.exists(lib):
         return True
-    deps = [os.path.join(CSRC, f"{name}.cu")] + glob.glob(os.path.join(CSRC, "*.cuh"))
-    return any(os.path.getmtime(d) > os.path.getmtime(lib) for d in deps)
+    return any(os.path.getmtime(d) > os.path.getmtime(lib) for d in _deps(name))
 
 
 @contextlib.contextmanager
@@ -76,42 +106,43 @@ def _build_lock():
 
 
 def build_all(names: Sequence[str] = SOURCES) -> List[str]:
-    """Compile every stale source, one nvcc process each, all at once.
+    """Compile every stale library, one compiler process each, all at once.
     Returns the names that this process built (none where another process
     built them first)."""
     with _build_lock():
         todo = [n for n in names if _stale(n)]
         if not todo:
             return []
-        exe = nvcc()
-        procs = {}
-        for name in todo:
-            tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
-            cmd = [exe, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True))
+        tmps = {name: f"{lib_path(name)}.{os.getpid()}.tmp" for name in todo}
+        cmds = {name: _command(name, tmps[name]) for name in todo}
+        procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+                 for name, cmd in cmds.items()}
         failed = []
-        for name, (tmp, proc) in procs.items():
+        for name, proc in procs.items():
             out, _ = proc.communicate()
             with open(log_path(name), "w") as f:
                 f.write(out)
             if proc.returncode != 0:
-                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+                failed.append(f"{name} ({os.path.basename(cmds[name][0])} exit "
+                              f"{proc.returncode}):\n{out}")
             else:
-                os.replace(tmp, lib_path(name))
+                os.replace(tmps[name], lib_path(name))
         if failed:
-            raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+            raise RuntimeError("build failed:\n" + "\n".join(failed))
         return todo
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if stale."""
+    """The built library for ``csrc/<name>.cu`` (or ``HOST``), building it
+    if stale."""
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(lib_path(name))
-        lib.ff_error_string.argtypes = [ctypes.c_int]
-        lib.ff_error_string.restype = ctypes.c_char_p
+        if name != HOST:
+            lib.ff_error_string.argtypes = [ctypes.c_int]
+            lib.ff_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
 

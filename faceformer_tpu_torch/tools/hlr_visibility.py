@@ -174,6 +174,22 @@ def _replica_parity(polys: List[np.ndarray], theta: np.ndarray,
     return inside
 
 
+def _sphere_side(face: BFace, c: np.ndarray, n: np.ndarray, po: np.ndarray,
+                 tol: float) -> float:
+    """+1 or -1: the side of the plane (normal ``n`` through ``po``) on
+    which the sphere face lies next to its boundary in that plane. A
+    face lies to the left of its boundary walk seen from its normal (the
+    outward one where ``same_sense``); 0.0 when no walk segment lies in
+    the plane."""
+    for pts in _loop_points(face, tol):
+        on = np.abs((pts - po) @ n) < tol
+        for a, b, both in zip(pts[:-1], pts[1:], on[:-1] & on[1:]):
+            if both and np.any(a != b):
+                normal = (a - c) if face.same_sense else (c - a)
+                return float(np.sign(np.cross(normal, b - a) @ n))
+    return 0.0
+
+
 # ---------------------------------------------------------------------------
 # the tester
 # ---------------------------------------------------------------------------
@@ -342,7 +358,17 @@ class OcclusionTester:
                 seed = np.array([0.0, 1.0, 0.0])
             radial = seed - axis * float(seed @ axis)
         ref = c + r * radial / float(np.linalg.norm(radial))
-        signs = [np.sign(float((ref - po) @ n)) for _k, n, po in planes]
+        signs = []
+        for _k, n, po in planes:
+            side = float((ref - po) @ n)
+            if abs(side) < self.tol:
+                # the reference point lies on this bounding plane (a cut
+                # through the centre, as a hemisphere's rim): the cap's
+                # pole on the face's side of the plane decides instead
+                pole = c + r * n * _sphere_side(face, c, n, po, self.tol)
+                side = float((pole - po) @ n)
+            signs.append(np.sign(side))
+        assert all(signs), f"sphere face {face.fid}: a bounding plane without a side"
 
         def test(p, d, slo, shi):
             q = p - c

@@ -44,33 +44,33 @@ class CheckpointManager:
         self.tie_refresh_epochs = tie_refresh_epochs
         os.makedirs(directory, exist_ok=True)
         self._index_path = os.path.join(directory, "index.json")
+        self._index_dir = os.path.dirname(os.path.abspath(self._index_path))
         self._index: Dict[str, Any] = {"top": [], "last": None}
         if os.path.exists(self._index_path):
             with open(self._index_path) as f:
                 self._index = json.load(f)
             # an index carried across machines can list entries whose
             # weights are gone (only the small .meta.json sidecars are kept
-            # in git): drop them and their orphaned sidecars. Entries are
-            # written into this manager's directory, so resolve them
-            # against the index file's directory, not the working directory.
-            index_dir = os.path.dirname(os.path.abspath(self._index_path))
-
-            def _resolve(path: str) -> str:
-                if os.path.isabs(path):
-                    return path
-                return os.path.join(index_dir, os.path.basename(path))
-
+            # in git): drop them and their orphaned sidecars
             live, stale = [], []
             for e in self._index.get("top", []):
-                (live if os.path.isfile(_resolve(e[1])) else stale).append(e)
+                (live if os.path.isfile(self._resolve(e[1])) else stale).append(e)
             if stale:
                 self._index["top"] = live
                 for e in stale:
-                    full = _resolve(e[1])
+                    full = self._resolve(e[1])
                     if os.path.exists(full + ".meta.json"):
                         os.remove(full + ".meta.json")
                 with open(self._index_path, "w") as f:
                     json.dump(self._index, f, indent=1)
+
+    def _resolve(self, path: str) -> str:
+        """An index entry as a path from any working directory: entries are
+        written into this manager's directory, so a relative one resolves
+        against the index file's directory, not the working directory."""
+        if os.path.isabs(path):
+            return path
+        return os.path.join(self._index_dir, os.path.basename(path))
 
     # -- low-level file io ---------------------------------------------------
 
@@ -154,7 +154,10 @@ class CheckpointManager:
             json.dump(meta, f, indent=1)
 
     def best_path(self) -> Optional[str]:
-        return self._index["top"][0][1] if self._index["top"] else self._index["last"]
+        """The best scored checkpoint, else ``last`` (None before a save),
+        resolved as the liveness check resolves entries."""
+        best = self._index["top"][0][1] if self._index["top"] else self._index["last"]
+        return None if best is None else self._resolve(best)
 
 
 def load_checkpoint(path: str, map_location="cpu"):

@@ -13,8 +13,11 @@ reference: faceformer/trainer.py:153-300).
     type_acc = type matches / TP;
   - plus a token-level accuracy over non-PAD label positions.
 
-The enclosedness filter runs the Python predicate; the JAX package may run a
-C++ twin of it, which its own tests hold byte-identical.
+The enclosedness filter runs in the host library, one C call for a
+sample's predicted faces and one for its label faces over edges flattened
+once (``geometry/native.py::filter_faces_by_encloseness_batch``, equal to
+the Python predicate); direction-token faces, whose indices carry
+orientations, go to the Python predicate.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from faceformer_tpu_torch.config import PostProcessConfig, TokenConfig
-from faceformer_tpu_torch.post_processing import (
-    filter_faces_by_encloseness,
-    map_coedge_into_edges,
+from faceformer_tpu_torch.geometry.native import (
+    filter_faces_by_encloseness_batch,
+    flatten_edges,
 )
+from faceformer_tpu_torch.post_processing import map_coedge_into_edges
 
 Face = Tuple[int, tuple]
 
@@ -187,8 +191,10 @@ class FaceMetrics:
 
         if to_edge_sets is not None:
             tol = self.post_process.enclosedness_tol
-            predict_faces = filter_faces_by_encloseness(edges, predict_faces, tol)
-            label_faces = filter_faces_by_encloseness(edges, label_faces, tol)
+            # direction-token faces take the Python predicate: no flattening
+            flat = None if self.post_process.direction_token else flatten_edges(edges)
+            predict_faces = filter_faces_by_encloseness_batch(edges, predict_faces, tol, flat)
+            label_faces = filter_faces_by_encloseness_batch(edges, label_faces, tol, flat)
             out["accuracy"], out["type_acc_coedge_seq"] = _coedge_seq_accuracy(
                 predict_faces, label_faces)
             predict_faces = to_edge_sets(predict_faces)

@@ -294,6 +294,33 @@ def test_stale_index_entries_pruned_on_init(tmp_path):
     assert CheckpointManager.restore_tree(fresh.best_path()) is not None
 
 
+def test_best_path_opens_from_another_working_directory(tmp_path, monkeypatch):
+    """A manager made with a relative directory, and one made later from
+    elsewhere over the same index: best_path returns a path that opens
+    from any working directory."""
+    cfg = port_cfg(Config())
+    (tmp_path / "run").mkdir()
+    (tmp_path / "elsewhere").mkdir()
+    monkeypatch.chdir(tmp_path / "run")
+    mgr = CheckpointManager("ckpt", top_k=2)
+    mgr.save(TREE, cfg, 1, metric_value=0.9)
+    mgr.save(TREE, cfg, 2, metric_value=0.8)
+    assert mgr._index["top"][0][1] == os.path.join("ckpt", "epoch=1-valid_precision=0.9000")
+    monkeypatch.chdir(tmp_path / "elsewhere")
+    for manager in (mgr, CheckpointManager(str(tmp_path / "run" / "ckpt"), top_k=2)):
+        best = manager.best_path()
+        assert best == str(tmp_path / "run" / "ckpt" / "epoch=1-valid_precision=0.9000")
+        with open(best, "rb") as f:
+            assert f.read(1)
+        assert CheckpointManager.restore_tree(best) is not None
+    unscored = CheckpointManager("fresh", top_k=0)
+    assert unscored.best_path() is None
+    unscored.save(TREE, cfg, 1, metric_value=0.5)
+    monkeypatch.chdir(tmp_path)
+    assert unscored.best_path() == str(tmp_path / "elsewhere" / "fresh" / "last")
+    assert os.path.isfile(unscored.best_path())
+
+
 def test_top_k_negative_keeps_all(tmp_path):
     mgr = CheckpointManager(str(tmp_path), top_k=-1)
     cfg = port_cfg(Config())
