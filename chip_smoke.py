@@ -86,9 +86,12 @@ Phases (each prints one or more lines; any failure exits non-zero):
      (causal_cache timed at N=32 with a profiled decode, reference at N=4;
      over the first FLAT_CHECK_STEPS steps each engine's fp32 grid through
      the kernels equal to the plain versions', bf16 grids parting only at
-     near-ties); the command line
-     (a 350-solid direction-token corpus, one epoch of fit with validation
-     and a checkpoint, test with causal_cache, predict on four wireframes);
+     near-ties); the command lines (a 350-solid direction-token corpus;
+     ``tools.train_demos run dirtok-s0`` fits one epoch with validation and
+     checkpoints, then tests with causal_cache the checkpoint
+     ``CheckpointManager.best_path`` names, the scored epoch 1 and not
+     ``last``; its ``summary`` reads the version back; predict on four
+     wireframes);
      its profiled causal_cache decode runs the first FLAT_PROFILE_STEPS
      steps;
   7. ranks (parallel/mesh.py), the remat policies and tools.profile:
@@ -1384,6 +1387,7 @@ def run_training(cfg, rng, seed, samples, dev):
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MAIN = "faceformer_tpu_torch.main"
+DEMOS = "faceformer_tpu_torch.tools.train_demos"
 CLI_CONFIG = os.path.join(REPO, "configs", "synthetic-big.yml")
 # the corpus of synthetic-big.yml cut from 8,192 solids to 352: the seeded
 # 0.93 / 0.02 / 0.05 split then gives 327 / 7 / 18, 10 steps an epoch
@@ -1507,6 +1511,23 @@ def run_cli(cwd, label, module, *argv, timeout=900, tag="[5]"):
     print(f"{tag} {label}: rc 0 in {wall:.1f} s, launches {launched_now}, max_memory_allocated "
           f"{stats['max_memory_allocated']}", flush=True)
     return proc.stdout, stats, wall
+
+
+def run_demos(cwd, label, *argv, timeout=900, tag="[6]"):
+    """``python -m faceformer_tpu_torch.tools.train_demos argv`` in a
+    subprocess run from ``cwd``; fails on a non-zero exit. Returns (stdout,
+    the ``STAGE`` records by stage: each stage's process counts its own
+    launches and peak memory, phase by phase)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", DEMOS, *argv], cwd=cwd, env=repo_env(),
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n", flush=True)
+        fail(f"{label}: exit code {proc.returncode}")
+    records = [json.loads(line[len("STAGE "):]) for line in proc.stdout.splitlines()
+               if line.startswith("STAGE ")]
+    print(f"{tag} {label}: rc 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return proc.stdout, {r["stage"]: r for r in records}
 
 
 def run_lift(cwd, label, exporter, root, cores=LIFT_CORES):
@@ -2483,13 +2504,16 @@ def run_flat_serving(model, mc, samples, dev):
 def run_flat_cli(host: dict):
     """The flat model through the command lines, each in a subprocess:
     ``tools.synthetic_data`` writes the cut direction-token corpus ([10]
-    checks the host path on it into ``host``); ``main``
-    fits one epoch (validation with causal_cache and a checkpoint after it)
-    and tests ``last``; ``tools.predict`` decodes four test wireframes.
-    Returns (launch counts summed over the runs, numbers)."""
+    checks the host path on it into ``host``); ``tools.train_demos run
+    dirtok-s0`` fits one epoch (validation with causal_cache and
+    checkpoints after it) and tests the checkpoint ``best_path`` names,
+    and its ``summary`` reads the version back; ``tools.predict`` decodes
+    four test wireframes. Returns (launch counts summed over the runs,
+    numbers)."""
     import collections
 
     from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.train.checkpoint import CheckpointManager
 
     cfg = load_config(FLAT_CONFIG)
     per_step = cfg.model.num_encoder_layers + 2 * cfg.model.num_decoder_layers
@@ -2507,15 +2531,24 @@ def run_flat_cli(host: dict):
             fail(f"flat corpus split {split}, expected {FLAT_SPLIT}")
         host["synthetic-dirtok-big"] = check_host_loader("[6]'s synthetic-dirtok-big corpus",
                                                          syn, FLAT_CONFIG)
-        base = ("root_dir", syn, "trainer.name", "flat")
-        log = os.path.join(tmp, "logs", "flat")
-        last = os.path.join(log, "v0", "checkpoints", "last")
+        version = "torch-dirtok-big-s0"
+        logs = os.path.join(tmp, "logs", cfg.trainer.name)
+        log = os.path.join(logs, version)
 
-        _, fit, _ = run_cli(tmp, "fit (1 epoch)", MAIN, "--config-file", FLAT_CONFIG, *base,
-                            "trainer.version", "v0", "trainer.max_epochs", "1",
-                            "trainer.checkpoint_period", "1", timeout=600, tag="[6]")
+        _, stages = run_demos(tmp, "train_demos run dirtok-s0 (fit 1 epoch, test best_path)",
+                              "run", "dirtok-s0", "root_dir", syn, "trainer.max_epochs", "1",
+                              "trainer.checkpoint_period", "1")
+        record = stages.get("dirtok-s0")
+        if record is None or record["version"] != version:
+            fail(f"train_demos: no STAGE record of dirtok-s0 as {version}")
+        fit, test = record["fit"], record["test"]
         total.update(fit["launches"])
-        records = read_jsonl(os.path.join(log, "v0", "metrics.jsonl"))
+        total.update(test["launches"])
+        print(f"[6] train_demos dirtok-s0: fit {fit['seconds']:.1f} s, launches "
+              f"{fit['launches']}, max_memory_allocated {fit['max_memory_allocated']}; test "
+              f"{test['seconds']:.1f} s, launches {test['launches']}, max_memory_allocated "
+              f"{test['max_memory_allocated']}", flush=True)
+        records = read_jsonl(os.path.join(log, "metrics.jsonl"))
         losses = [(r["step"], r["train_loss"]) for r in records if "train_loss" in r]
         steps = FLAT_SPLIT[0] // cfg.batch_size_train
         timing = [r for r in records if "epoch_train_seconds" in r]
@@ -2525,35 +2558,53 @@ def run_flat_cli(host: dict):
         if ([s for s, _ in losses] != list(range(1, steps + 1))
                 or not all(np.isfinite(x) for _, x in losses)):
             fail(f"flat fit: train_loss at steps {[s for s, _ in losses]}")
-        if len(valid) != 1 or len(timing) != 1 or not os.path.isfile(last):
+        if (len(valid) != 1 or len(timing) != 1
+                or not os.path.isfile(os.path.join(log, "checkpoints", "last"))):
             fail("flat fit: no validation, epoch timing or checkpoints/last")
-        if (fit["launches"]["flash_bwd"] != steps * per_step
-                or fit["launches"]["flash_fwd"] < steps * per_step
-                or fit["launches"]["pointer_argmax"] <= 0):
+        if (fit["launches"].get("flash_bwd") != steps * per_step
+                or fit["launches"].get("flash_fwd", 0) < steps * per_step
+                or fit["launches"].get("pointer_argmax", 0) <= 0):
             fail(f"flat fit: launches {fit['launches']}")
 
-        _, test, _ = run_cli(tmp, "test last (causal_cache)", MAIN, "--config-file", FLAT_CONFIG,
-                             "--test_ckpt", last, *base, "trainer.version", "test", tag="[6]")
-        total.update(test["launches"])
-        with open(os.path.join(log, "test", "results.json")) as f:
+        # the tested checkpoint is the one best_path names: after one epoch
+        # at checkpoint_period 1, the scored epoch 1, not `last`
+        best = CheckpointManager(os.path.join(log, "checkpoints")).best_path()
+        tested = record["tested_ckpt"]
+        print(f"[6] train_demos tested {os.path.basename(tested)}; best_path "
+              f"{os.path.basename(best)}", flush=True)
+        if tested != best or not os.path.basename(tested).startswith("epoch=1-"):
+            fail(f"train_demos tested {tested}, best_path {best}")
+        results_path = os.path.join(log, "results.json")
+        if not os.path.isfile(results_path):
+            fail("train_demos: no results.json")
+        with open(results_path) as f:
             results = json.load(f)
-        tested = read_records(os.path.join(log, "test", "json"), FLAT_SPLIT[2])
-        if (test["launches"]["pointer_argmax"] <= 0 or not test["launches"]["flash_fwd"]
-                or test["launches"]["decode_step"]):
+        if results != record["results"] or results["num_samples"] != FLAT_SPLIT[2]:
+            fail(f"train_demos: results.json {results}, the stage's {record['results']}")
+        out, _ = run_demos(tmp, "train_demos summary", "summary", version, "--log_root", logs)
+        summary = json.loads(out.strip().splitlines()[-1])
+        if (summary["n_seeds"] != 1 or summary["versions"] != {version: results}
+                or summary["test_precision"]["mean"] != round(results["test_precision"], 4)
+                or summary["num_samples"] != FLAT_SPLIT[2]):
+            fail(f"train_demos summary: {summary}")
+        print(f"[6] train_demos summary: {json.dumps(summary)}", flush=True)
+        tested_json = read_records(os.path.join(log, "json"), FLAT_SPLIT[2])
+        if (test["launches"].get("pointer_argmax", 0) <= 0 or not test["launches"].get("flash_fwd")
+                or test["launches"].get("decode_step")):
             fail(f"flat test: launches {test['launches']}")
         print(f"[6] flat test: {results}; faces predicted over the {FLAT_SPLIT[2]} solids "
-              f"{sum(len(json.loads(r)['pred_faces']) for r in tested.values())}", flush=True)
+              f"{sum(len(json.loads(r)['pred_faces']) for r in tested_json.values())}", flush=True)
 
         pred_in = os.path.join(tmp, "pred_in", "json")
         os.makedirs(pred_in)
-        for name in sorted(tested)[:4]:
+        for name in sorted(tested_json)[:4]:
             shutil.copy(os.path.join(syn, "json", name), pred_in)
         _, pred, _ = run_cli(tmp, "predict (4 wireframes)", "faceformer_tpu_torch.tools.predict",
-                             "--config", FLAT_CONFIG, "--ckpt", last, "--root",
+                             "--config", FLAT_CONFIG, "--ckpt", tested, "--root",
                              os.path.dirname(pred_in), tag="[6]")
         total.update(pred["launches"])
         preds = read_records(os.path.join(os.path.dirname(pred_in), "pred", "json"), 4)
-        agree = all(json.loads(preds[k])["pred_faces"] == json.loads(tested[k])["pred_faces"]
+        agree = all(json.loads(preds[k])["pred_faces"] == json.loads(tested_json[k])["pred_faces"]
                     for k in preds)
         print(f"[6] flat predict: 4 JSONs, pred_faces equal to the test's: {agree}", flush=True)
         if not agree or pred["launches"]["pointer_argmax"] <= 0:
