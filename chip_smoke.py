@@ -77,8 +77,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
      kernel's tile (K3 on the dead rows' shape judged sample by sample);
      K2 and K3 at the model's three
      attention shapes (the checks of [2], then timed as in [4], and at
-     2,000 causal keys, K3 there held to its bf16 gates); K1 at one row a
-     sample; training (every gradient through the kernels against the
+     2,000 causal keys, K3 there held to its bf16 gates) and at the coedge
+     recipe's three (COEDGE_SHAPES, the checks of [2]); K1 at one row a
+     sample against both recipes' memory rows; training (every gradient through the kernels against the
      plain versions in fp32 at N=2, then 5 timed bf16 steps at N=32 after
      2 warm-ups: samples/s, the step's split, peak memory, launches, K2's
      and K3's tensor-core key-tiled kernels in every decoder
@@ -90,8 +91,14 @@ Phases (each prints one or more lines; any failure exits non-zero):
      ``tools.train_demos run dirtok-s0`` fits one epoch with validation and
      checkpoints, then tests with causal_cache the checkpoint
      ``CheckpointManager.best_path`` names, the scored epoch 1 and not
-     ``last``; its ``summary`` reads the version back; predict on four
-     wireframes);
+     ``last``; its ``summary`` reads the version back;
+     predict on four wireframes; then, side by side on the card,
+     ``tools.diagnose_dirtok`` on the tested checkpoint (its counts
+     consistent, K1 and K2 launched; its counting function over the test
+     split's label rows and planted decodes, whose counts are not 0) and
+     ``tools.train_demos run coedge-s0`` on a 128-solid cut of the coedge
+     recipe's corpus at configs/synthetic-coedge-big.yml's width (S=220,
+     T=259, nested coedge labels), checked as dirtok-s0's stage);
      its profiled causal_cache decode runs the first FLAT_PROFILE_STEPS
      steps;
   7. ranks (parallel/mesh.py), the remat policies and tools.profile:
@@ -181,6 +188,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import ctypes
 import dataclasses
 import json
@@ -199,9 +207,57 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, non-tensor fp32
 
 
+# the command lines running now (run_command), which fail() ends with
+# every process they started
+RUNNING = set()
+
+
+def descendants(pid: int) -> list:
+    """The processes below ``pid``, read from /proc's stat files."""
+    children = collections.defaultdict(list)
+    for name in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children[ppid].append(int(name))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    for proc in list(RUNNING):
+        for pid in [proc.pid, *descendants(proc.pid)]:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
     sys.exit(1)
+
+
+def run_command(argv, cwd, timeout) -> subprocess.CompletedProcess:
+    """``subprocess.run(argv, capture_output=True, text=True)`` with the
+    repository on PYTHONPATH, whose process (and what it starts) fail()
+    ends, from whichever thread fails first."""
+    proc = subprocess.Popen(argv, cwd=cwd, env=repo_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    RUNNING.add(proc)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    finally:
+        RUNNING.discard(proc)
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
 
 
 def nvidia_smi() -> str:
@@ -1389,6 +1445,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MAIN = "faceformer_tpu_torch.main"
 DEMOS = "faceformer_tpu_torch.tools.train_demos"
 CLI_CONFIG = os.path.join(REPO, "configs", "synthetic-big.yml")
+RANK_STATS_DIR = "rank_stats"  # counted_rank's files, under a command line's cwd
 # the corpus of synthetic-big.yml cut from 8,192 solids to 352: the seeded
 # 0.93 / 0.02 / 0.05 split then gives 327 / 7 / 18, 10 steps an epoch
 CLI_NUM, CLI_SPLIT = 352, (327, 7, 18)
@@ -1415,14 +1472,16 @@ CLI_AGREE_MIN = 0.9
 # the counts, the peak device memory and the host seconds spent in
 # reconstruction.wireframe.reconstruct_file (predict --reconstruct's lift) on
 # a line of their own. The ranks a multi-rank command line starts each
-# print theirs (``counted_rank``).
+# write theirs to RANK_STATS_DIR under the working directory
+# (``counted_rank``).
 CLI_WRAPPER = """
-import json, runpy, sys, time
+import json, os, runpy, sys, time
 import torch
 import chip_smoke
 from faceformer_tpu_torch import ops
 from faceformer_tpu_torch.parallel import mesh
 ops.reset_launches()
+os.environ["CHIP_SMOKE_RANK_STATS"] = os.path.abspath(chip_smoke.RANK_STATS_DIR)
 spawn = mesh.spawn
 mesh.spawn = lambda size, fn, *args: spawn(size, chip_smoke.counted_rank, fn, *args)
 sys.argv = sys.argv[1:]
@@ -1499,8 +1558,7 @@ def run_cli(cwd, label, module, *argv, timeout=900, tag="[5]"):
     lands there); fails on a non-zero exit. Returns (stdout, launch counts
     and peak memory, wall seconds)."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, module, *argv], cwd=cwd,
-                          env=repo_env(), capture_output=True, text=True, timeout=timeout)
+    proc = run_command([sys.executable, "-c", CLI_WRAPPER, module, *argv], cwd, timeout)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n", flush=True)
@@ -1519,8 +1577,7 @@ def run_demos(cwd, label, *argv, timeout=900, tag="[6]"):
     the ``STAGE`` records by stage: each stage's process counts its own
     launches and peak memory, phase by phase)."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", DEMOS, *argv], cwd=cwd, env=repo_env(),
-                          capture_output=True, text=True, timeout=timeout)
+    proc = run_command([sys.executable, "-m", DEMOS, *argv], cwd, timeout)
     if proc.returncode != 0:
         print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n", flush=True)
         fail(f"{label}: exit code {proc.returncode}")
@@ -1945,6 +2002,15 @@ FLAT_CONFIG = os.path.join(REPO, "configs", "synthetic-dirtok-big.yml")
 FLAT_NUM, FLAT_SPLIT = 350, (325, 7, 18)
 FLAT_GEN = ("--num", str(FLAT_NUM), "--seed", "3", "--profile", "rich", "--direction_token",
             "--max_edges", "110", "--max_faces", "42", "--max_label_len", "508")
+# the corpus of synthetic-coedge-big.yml (its header's generator flags) cut
+# from 8,192 solids to 128: the seeded split gives 119 / 2 / 7, 3 steps an
+# epoch at batch 32. Each corpus lies at its config's root_dir under the
+# command lines' working directory, so a command line that reads the
+# config as written (diagnose_dirtok) finds it
+COEDGE_CONFIG = os.path.join(REPO, "configs", "synthetic-coedge-big.yml")
+COEDGE_NUM, COEDGE_SPLIT = 128, (119, 2, 7)
+COEDGE_GEN = ("--num", str(COEDGE_NUM), "--seed", "4", "--profile", "rich", "--no_face_type",
+              "--max_edges", "216", "--max_faces", "42", "--max_label_len", "258")
 # K2 and K3 past their whole-row kernels' reach (label, n, sq, sk, causal,
 # heads, hd, dead): the flat decoder self-attention's length, a ragged
 # 1,000 keys off the 128-key tile, a causal 600 whose rows 0-69 of sample
@@ -1959,6 +2025,13 @@ LONG_KEY_SHAPES = (("causal-512", 2, 512, 512, True, 8, 64, 0),
 FLAT_SHAPES = (("flat-encoder", 32, 116, 116, False, 32),
                ("flat-decoder-self", 32, 512, 512, True, 8),
                ("flat-cross", 32, 512, 116, False, 8))
+# the same three calls of the coedge recipe's step
+# (configs/synthetic-coedge-big.yml: S = 216 + 4 memory rows; T - 1 = 258
+# targets padded to 264 keys, on the tensor-core key-tiled kernels with an
+# 8-key last tile), checked against the config in run_flat_phase
+COEDGE_SHAPES = (("coedge-encoder", 32, 220, 220, False, 32),
+                 ("coedge-decoder-self", 32, 264, 264, True, 8),
+                 ("coedge-cross", 32, 264, 220, False, 8))
 # timed beside them: K2's and K3's key-tiled kernels near the JAX kernel's
 # reach (a ragged causal key side of 2,000, 4 sequences of 8 heads)
 LONG_TIMED = ("long-keys-2000", 4, 2000, 2000, True, 4)
@@ -2501,86 +2574,211 @@ def run_flat_serving(model, mc, samples, dev):
     return launches
 
 
+def corpus_split(root: str) -> tuple:
+    """The sample counts of a corpus's train, valid and test split files."""
+    split = []
+    for name in ("train.txt", "valid.txt", "test.txt"):
+        with open(os.path.join(root, name)) as f:
+            split.append(sum(1 for line in f if line.strip()))
+    return tuple(split)
+
+
+def check_diagnosis(tmp: str, ckpt: str, out: str) -> dict:
+    """``tools.diagnose_dirtok`` on the direction-token checkpoint ``ckpt``
+    over the test split, on the card: the counts hold together, and K1 and
+    K2 were launched, K4 not. Returns its launch counts."""
+    from faceformer_tpu_torch.tools.diagnose_dirtok import COUNT_KEYS
+
+    _, stats, _ = run_cli(tmp, "diagnose_dirtok (the tested checkpoint)",
+                          "faceformer_tpu_torch.tools.diagnose_dirtok", "--ckpt", ckpt,
+                          "--config", FLAT_CONFIG, "--out", out, tag="[6]")
+    with open(out) as f:
+        d = json.load(f)[-1]
+    counts = {k: d[k] for k in (*COUNT_KEYS, "filter_drop_rate")}
+    print(f"[6] diagnose_dirtok: {json.dumps(counts)}", flush=True)
+    if not (d["samples"] == FLAT_SPLIT[2] and d["pred_kept"] <= d["pred_raw"]
+            and d["kept_matches_label"] <= d["pred_kept"]
+            and d["dropped_but_matches_label"] <= d["pred_raw"] - d["pred_kept"]):
+        fail(f"diagnose_dirtok: counts {d}")
+    launches = stats["launches"]
+    if (launches.get("pointer_argmax", 0) <= 0 or launches.get("flash_fwd", 0) <= 0
+            or launches.get("decode_step")):
+        fail(f"diagnose_dirtok: launches {launches}")
+    return launches
+
+
+def planted_rows(labels: np.ndarray, tok) -> np.ndarray:
+    """Label rows with the first pair's direction bit flipped and the last
+    face cut off (its SEP made the EOS): a slip and a skipped face a row."""
+    out = np.array(labels)
+    for row in out:
+        if row[2] in (tok.DIR0, tok.DIR1):
+            row[2] = tok.DIR0 + tok.DIR1 - row[2]
+        eos = int(np.argmax(row == tok.EOS))
+        seps = np.flatnonzero(row[:eos] == tok.SEP)
+        if len(seps):
+            row[seps[-1]], row[seps[-1] + 1:] = tok.EOS, tok.PAD
+    return out
+
+
+
+def planted_counts(root: str, device: str = "cuda") -> dict:
+    """``diagnose_dirtok.count_sample`` over the test split of the
+    direction-token corpus at ``root``, its decodes planted: each label row
+    passed back ("label"), then ``planted_rows`` of it ("planted"). A
+    one-epoch checkpoint emits no face, so these are the diagnosis's counts
+    that are not 0 in the script. Returns the two sums; fails unless the
+    label rows keep every face and the planted ones lose one face a row to
+    the cut and drop only faces that match a label."""
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.tools.diagnose_dirtok import COUNT_KEYS, count_sample
+    from faceformer_tpu_torch.train.trainer import Harness
+
+    cfg = dataclasses.replace(load_config(FLAT_CONFIG), root_dir=root)
+    tok, tol = cfg.model.token, cfg.post_process.enclosedness_tol
+    ds = Harness(cfg, device=device).dataset("test")
+    sums = {kind: dict.fromkeys(COUNT_KEYS, 0) for kind in ("label", "planted")}
+    cut = 0
+    for i in range(len(ds)):
+        item = ds[i]
+        labels = np.asarray(item["label"])
+        raw = ds.raw_datas[item["id"]]
+        planted = planted_rows(labels[None], tok)[0]
+        cut += int((labels == tok.SEP).sum() > (planted == tok.SEP).sum())
+        for kind, row in (("label", labels), ("planted", planted)):
+            for key, value in count_sample(row, labels, raw, tok, tol).items():
+                sums[kind][key] += value
+    a, b = sums["label"], sums["planted"]
+    print(f"[6] diagnose_dirtok.count_sample over the {a['samples']} test solids, planted "
+          f"decodes: label rows passed back {json.dumps(a)}; a direction bit flipped and the "
+          f"last face cut a row ({cut} rows cut) {json.dumps(b)}", flush=True)
+    if not (a["samples"] == b["samples"] == len(ds) > 0 and a["label"] > 0
+            and a["pred_raw"] == a["pred_kept"] == a["kept_matches_label"] == a["label"]
+            and a["dropped_but_matches_label"] == 0):
+        fail(f"diagnose_dirtok.count_sample on label rows: {a}")
+    if not (b["label"] == a["label"] and b["pred_raw"] == a["label"] - cut
+            and 0 < b["dropped_but_matches_label"] == b["pred_raw"] - b["pred_kept"]
+            and b["kept_matches_label"] == b["pred_kept"]):
+        fail(f"diagnose_dirtok.count_sample on planted rows: {b}")
+    return sums
+
+
+def run_stage(tmp: str, stage: str, version: str, config: str, split: tuple, *overrides):
+    """``tools.train_demos run <stage> <overrides>`` for one epoch at
+    checkpoint_period 1, from ``tmp``: the STAGE record names ``version``;
+    finite train_loss at steps 1 .. the epoch's; one validation, its
+    timing and checkpoints/last; the tested checkpoint is the one
+    ``best_path`` names, the scored epoch 1 and not ``last``;
+    results.json is the stage's, over the test split; K3 once a layer a
+    step and K2 as often or more in the fit, K1 in its validation; K1 and
+    K2 and no K4 in the test. Returns (the STAGE record, the version's log
+    directory, its metrics.jsonl records)."""
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = load_config(config)
+    mc = cfg.model
+    log = os.path.join(tmp, "logs", cfg.trainer.name, version)
+    _, stages = run_demos(tmp, f"train_demos run {stage} (fit 1 epoch, test best_path)", "run",
+                          stage, *overrides, "trainer.max_epochs", "1",
+                          "trainer.checkpoint_period", "1")
+    record = stages.get(stage)
+    if record is None or record["version"] != version:
+        fail(f"train_demos: no STAGE record of {stage} as {version}")
+    fit, test = record["fit"], record["test"]
+    records = read_jsonl(os.path.join(log, "metrics.jsonl"))
+    losses = [(r["step"], r["train_loss"]) for r in records if "train_loss" in r]
+    valid = [r for r in records if "valid_precision" in r]
+    timing = [r for r in records if "epoch_train_seconds" in r]
+    steps = split[0] // cfg.batch_size_train
+    per_step = mc.num_encoder_layers + 2 * mc.num_decoder_layers
+    best = CheckpointManager(os.path.join(log, "checkpoints")).best_path()
+    tested = record["tested_ckpt"]
+    results_path = os.path.join(log, "results.json")
+    results = None
+    if os.path.isfile(results_path):
+        with open(results_path) as f:
+            results = json.load(f)
+    print(f"[6] train_demos {stage} (S={mc.num_lines + mc.token.length}, "
+          f"T={mc.label_seq_length}): fit {fit['seconds']:.1f} s, train_loss "
+          f"{' '.join(f'{x:.4f}' for _, x in losses)}, validations {len(valid)}, launches "
+          f"{fit['launches']}, max_memory_allocated {fit['max_memory_allocated']}; tested "
+          f"{os.path.basename(tested)} (best_path {os.path.basename(best)}) in "
+          f"{test['seconds']:.1f} s, launches {test['launches']}, max_memory_allocated "
+          f"{test['max_memory_allocated']}; {record['results']}", flush=True)
+    if ([s for s, _ in losses] != list(range(1, steps + 1))
+            or not all(np.isfinite(x) for _, x in losses)):
+        fail(f"{stage} fit: train_loss at steps {[s for s, _ in losses]}, {steps} expected")
+    if (len(valid) != 1 or len(timing) != 1
+            or not os.path.isfile(os.path.join(log, "checkpoints", "last"))):
+        fail(f"{stage} fit: no validation, epoch timing or checkpoints/last")
+    if tested != best or not os.path.basename(tested).startswith("epoch=1-"):
+        fail(f"train_demos {stage} tested {tested}, best_path {best}")
+    if results != record["results"] or record["results"]["num_samples"] != split[2]:
+        fail(f"train_demos {stage}: results.json {results}, the stage's {record['results']}")
+    if (fit["launches"].get("flash_bwd") != steps * per_step
+            or fit["launches"].get("flash_fwd", 0) < steps * per_step
+            or fit["launches"].get("pointer_argmax", 0) <= 0
+            or test["launches"].get("pointer_argmax", 0) <= 0
+            or not test["launches"].get("flash_fwd") or test["launches"].get("decode_step")):
+        fail(f"{stage}: launches fit {fit['launches']}, test {test['launches']}")
+    return record, log, records
+
+
+def run_coedge_stage(tmp: str) -> dict:
+    """``tools.train_demos run coedge-s0`` on the cut coedge corpus at its
+    config's width (run_stage). Returns the stage's launch counts."""
+    from faceformer_tpu_torch.config import load_config
+
+    syn = os.path.join(tmp, load_config(COEDGE_CONFIG).root_dir)
+    run_cli(tmp, "synthetic_data --no_face_type (coedge)",
+            "faceformer_tpu_torch.tools.synthetic_data", "--root", syn, *COEDGE_GEN, tag="[6]")
+    if corpus_split(syn) != COEDGE_SPLIT:
+        fail(f"coedge corpus split {corpus_split(syn)}, expected {COEDGE_SPLIT}")
+    record, _, _ = run_stage(tmp, "coedge-s0", "torch-coedge-big-s0", COEDGE_CONFIG,
+                             COEDGE_SPLIT)
+    return dict(collections.Counter(record["fit"]["launches"])
+                + collections.Counter(record["test"]["launches"]))
+
+
 def run_flat_cli(host: dict):
     """The flat model through the command lines, each in a subprocess:
     ``tools.synthetic_data`` writes the cut direction-token corpus ([10]
     checks the host path on it into ``host``); ``tools.train_demos run
     dirtok-s0`` fits one epoch (validation with causal_cache and
-    checkpoints after it) and tests the checkpoint ``best_path`` names,
-    and its ``summary`` reads the version back; ``tools.predict`` decodes
-    four test wireframes. Returns (launch counts summed over the runs,
+    checkpoints after it) and tests the checkpoint ``best_path`` names
+    (run_stage), and its ``summary`` reads the version back;
+    ``tools.predict`` decodes four test wireframes; then, side by side on
+    the card, ``tools.diagnose_dirtok`` reads the tested checkpoint
+    (planted_counts holds its counting to decodes that emit faces) and
+    ``tools.train_demos run coedge-s0`` fits and tests the coedge recipe
+    on its own cut corpus. Returns (launch counts summed over the runs,
     numbers)."""
     import collections
 
     from faceformer_tpu_torch.config import load_config
-    from faceformer_tpu_torch.train.checkpoint import CheckpointManager
 
     cfg = load_config(FLAT_CONFIG)
-    per_step = cfg.model.num_encoder_layers + 2 * cfg.model.num_decoder_layers
     total = collections.Counter()
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flat_") as tmp:
-        syn = os.path.join(tmp, "dirtok")
+        syn = os.path.join(tmp, cfg.root_dir)
         run_cli(tmp, "synthetic_data --direction_token",
                 "faceformer_tpu_torch.tools.synthetic_data", "--root", syn, *FLAT_GEN, tag="[6]")
-        split = []
-        for name in ("train.txt", "valid.txt", "test.txt"):
-            with open(os.path.join(syn, name)) as f:
-                split.append(sum(1 for line in f if line.strip()))
-        if tuple(split) != FLAT_SPLIT:
-            fail(f"flat corpus split {split}, expected {FLAT_SPLIT}")
+        if corpus_split(syn) != FLAT_SPLIT:
+            fail(f"flat corpus split {corpus_split(syn)}, expected {FLAT_SPLIT}")
         host["synthetic-dirtok-big"] = check_host_loader("[6]'s synthetic-dirtok-big corpus",
                                                          syn, FLAT_CONFIG)
         version = "torch-dirtok-big-s0"
         logs = os.path.join(tmp, "logs", cfg.trainer.name)
-        log = os.path.join(logs, version)
-
-        _, stages = run_demos(tmp, "train_demos run dirtok-s0 (fit 1 epoch, test best_path)",
-                              "run", "dirtok-s0", "root_dir", syn, "trainer.max_epochs", "1",
-                              "trainer.checkpoint_period", "1")
-        record = stages.get("dirtok-s0")
-        if record is None or record["version"] != version:
-            fail(f"train_demos: no STAGE record of dirtok-s0 as {version}")
-        fit, test = record["fit"], record["test"]
+        record, log, records = run_stage(tmp, "dirtok-s0", version, FLAT_CONFIG, FLAT_SPLIT,
+                                         "root_dir", syn)
+        fit, test, results = record["fit"], record["test"], record["results"]
+        tested = record["tested_ckpt"]
         total.update(fit["launches"])
         total.update(test["launches"])
-        print(f"[6] train_demos dirtok-s0: fit {fit['seconds']:.1f} s, launches "
-              f"{fit['launches']}, max_memory_allocated {fit['max_memory_allocated']}; test "
-              f"{test['seconds']:.1f} s, launches {test['launches']}, max_memory_allocated "
-              f"{test['max_memory_allocated']}", flush=True)
-        records = read_jsonl(os.path.join(log, "metrics.jsonl"))
-        losses = [(r["step"], r["train_loss"]) for r in records if "train_loss" in r]
         steps = FLAT_SPLIT[0] // cfg.batch_size_train
         timing = [r for r in records if "epoch_train_seconds" in r]
-        valid = [r for r in records if "valid_precision" in r]
-        print(f"[6] flat fit: train_loss {' '.join(f'{x:.4f}' for _, x in losses)}; "
-              f"validations {len(valid)}", flush=True)
-        if ([s for s, _ in losses] != list(range(1, steps + 1))
-                or not all(np.isfinite(x) for _, x in losses)):
-            fail(f"flat fit: train_loss at steps {[s for s, _ in losses]}")
-        if (len(valid) != 1 or len(timing) != 1
-                or not os.path.isfile(os.path.join(log, "checkpoints", "last"))):
-            fail("flat fit: no validation, epoch timing or checkpoints/last")
-        if (fit["launches"].get("flash_bwd") != steps * per_step
-                or fit["launches"].get("flash_fwd", 0) < steps * per_step
-                or fit["launches"].get("pointer_argmax", 0) <= 0):
-            fail(f"flat fit: launches {fit['launches']}")
-
-        # the tested checkpoint is the one best_path names: after one epoch
-        # at checkpoint_period 1, the scored epoch 1, not `last`
-        best = CheckpointManager(os.path.join(log, "checkpoints")).best_path()
-        tested = record["tested_ckpt"]
-        print(f"[6] train_demos tested {os.path.basename(tested)}; best_path "
-              f"{os.path.basename(best)}", flush=True)
-        if tested != best or not os.path.basename(tested).startswith("epoch=1-"):
-            fail(f"train_demos tested {tested}, best_path {best}")
-        results_path = os.path.join(log, "results.json")
-        if not os.path.isfile(results_path):
-            fail("train_demos: no results.json")
-        with open(results_path) as f:
-            results = json.load(f)
-        if results != record["results"] or results["num_samples"] != FLAT_SPLIT[2]:
-            fail(f"train_demos: results.json {results}, the stage's {record['results']}")
         out, _ = run_demos(tmp, "train_demos summary", "summary", version, "--log_root", logs)
         summary = json.loads(out.strip().splitlines()[-1])
         if (summary["n_seeds"] != 1 or summary["versions"] != {version: results}
@@ -2589,9 +2787,6 @@ def run_flat_cli(host: dict):
             fail(f"train_demos summary: {summary}")
         print(f"[6] train_demos summary: {json.dumps(summary)}", flush=True)
         tested_json = read_records(os.path.join(log, "json"), FLAT_SPLIT[2])
-        if (test["launches"].get("pointer_argmax", 0) <= 0 or not test["launches"].get("flash_fwd")
-                or test["launches"].get("decode_step")):
-            fail(f"flat test: launches {test['launches']}")
         print(f"[6] flat test: {results}; faces predicted over the {FLAT_SPLIT[2]} solids "
               f"{sum(len(json.loads(r)['pred_faces']) for r in tested_json.values())}", flush=True)
 
@@ -2610,6 +2805,20 @@ def run_flat_cli(host: dict):
         if not agree or pred["launches"]["pointer_argmax"] <= 0:
             fail(f"flat predict: launches {pred['launches']}, faces agree {agree}")
 
+        # the tested scored checkpoint stays; `last`, a copy of it, goes to
+        # spare the disk the coedge stage's two
+        os.remove(os.path.join(log, "checkpoints", "last"))
+        # the diagnosis and the coedge stage share the card (their seconds
+        # are the shared card's; every run above ran alone); a fail() in
+        # either thread ends the other's command line (run_command)
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            coedge_run = pool.submit(run_coedge_stage, tmp)
+            diagnosis = check_diagnosis(tmp, tested, os.path.join(log, "diagnose_dirtok.json"))
+            planted_counts(syn)
+            coedge = coedge_run.result()
+        total.update(diagnosis)
+        total.update(coedge)
+
         t = timing[0]
         numbers = {
             "fit_samples_per_s": t["train_samples_per_s"],
@@ -2624,8 +2833,10 @@ def run_flat_cli(host: dict):
             "checkpoint_bytes": t["checkpoint_bytes"],
             "max_memory_allocated": {"fit": fit["max_memory_allocated"],
                                      "test": test["max_memory_allocated"]},
-            "launches": {name: {k: v for k, v in st["launches"].items() if v}
-                         for name, st in (("fit", fit), ("test", test), ("predict", pred))},
+            "launches": {**{name: {k: v for k, v in st["launches"].items() if v}
+                            for name, st in (("fit", fit), ("test", test), ("predict", pred))},
+                         "diagnose_dirtok": {k: v for k, v in diagnosis.items() if v},
+                         "coedge-s0": {k: v for k, v in coedge.items() if v}},
         }
         print(f"[6] flat cli numbers on {nvidia_smi()}: {json.dumps(numbers)}", flush=True)
     print(f"[6] the flat command-line runs took {time.perf_counter() - t_phase:.1f} s",
@@ -2688,14 +2899,21 @@ def run_flat_phase(seed, rng, dev, host: dict):
         if dim == 64:  # bf16 on the tensor-core key-tiled kernels
             err["flash_fwd_tiled_tc"] = max(err["flash_fwd_tiled_tc"], e_fwd)
             err["flash_bwd_tiled_tc"] = max(err["flash_bwd_tiled_tc"], e_bwd)
-    for label, n_full, sq, sk, causal, n_plain in FLAT_SHAPES:
+    coedge = load_config(COEDGE_CONFIG).model
+    s_c, t_c = coedge.num_lines + coedge.token.length, -(-(coedge.label_seq_length - 1) // 8) * 8
+    if [x[2:4] for x in COEDGE_SHAPES] != [(s_c, s_c), (t_c, t_c), (t_c, s_c)] or (
+            coedge.num_head, coedge.num_model) != (h, mc.num_model):
+        fail(f"COEDGE_SHAPES {COEDGE_SHAPES} are not {COEDGE_CONFIG}'s S {s_c}, T {t_c}")
+    for label, n_full, sq, sk, causal, n_plain in FLAT_SHAPES + COEDGE_SHAPES:
         e_fwd, e_bwd = check_flash_train(rng, dev, label, n_full, sq, sk, causal, n_plain, h, hd)
         err["flash_fwd"], err["flash_bwd"] = max(err["flash_fwd"], e_fwd), max(err["flash_bwd"],
                                                                               e_bwd)
         if sk > 256:
             err["flash_fwd_tiled_tc"] = max(err["flash_fwd_tiled_tc"], e_fwd)
             err["flash_bwd_tiled_tc"] = max(err["flash_bwd_tiled_tc"], e_bwd)
-    err["pointer_argmax"] = check_pointer(rng, dev, cfg.batch_size_train, 1, s, mc.num_model)
+    err["pointer_argmax"] = max(check_pointer(rng, dev, cfg.batch_size_train, 1, s, mc.num_model),
+                                check_pointer(rng, dev, cfg.batch_size_train, 1, s_c,
+                                              coedge.num_model))
     rows = {"pointer_argmax": {"flat-step": time_pointer_one_row(rng, dev, cfg.batch_size_train,
                                                                  s, mc.num_model)},
             "flash_fwd": {}, "flash_bwd": {}}
@@ -2909,24 +3127,38 @@ def run_dp_ranks(seed: int, device: str = "cuda", config: str = "configs/ours.ym
 def counted_rank(fn, *args) -> None:
     """A rank of a multi-rank command line as ``run_cli``'s wrapper starts
     it: the command's own rank function, then the rank's launches and peak
-    memory on a line of their own (RANK_STATS)."""
+    memory in a file of its own under the wrapper's RANK_STATS_DIR (the
+    ranks share one stdout pipe, where one rank's line can be cut by
+    another's)."""
     import torch
     from faceformer_tpu_torch import ops
 
     ops.reset_launches()
     fn(*args)
     peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
-    print("RANK_STATS " + json.dumps({"rank": int(os.environ["RANK"]), "launches": ops.LAUNCHES,
-                                      "max_memory_allocated": peak}), flush=True)
+    rank = int(os.environ["RANK"])
+    out = os.environ["CHIP_SMOKE_RANK_STATS"]
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"rank{rank}.json.tmp"), "w") as f:
+        json.dump({"rank": rank, "launches": ops.LAUNCHES, "max_memory_allocated": peak}, f)
+    os.replace(os.path.join(out, f"rank{rank}.json.tmp"), os.path.join(out, f"rank{rank}.json"))
 
 
-def rank_stats(stdout: str, label: str, want) -> list:
-    """The RANK_STATS of both ranks of a command line; fails unless each
-    launched every kernel of ``want``."""
-    stats = sorted((json.loads(line[len("RANK_STATS "):]) for line in stdout.splitlines()
-                    if line.startswith("RANK_STATS ")), key=lambda s: s["rank"])
+def rank_stats(cwd: str, label: str, want) -> list:
+    """The stats of both ranks of the command line just run from ``cwd``
+    (``counted_rank``'s files, removed once read, so that the next command
+    line writes its own); fails unless each launched every kernel of
+    ``want``."""
+    out = os.path.join(cwd, RANK_STATS_DIR)
+    names = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    stats = []
+    for name in names:
+        with open(os.path.join(out, name)) as f:
+            stats.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    stats.sort(key=lambda s: s["rank"])
     if [s["rank"] for s in stats] != [0, 1]:
-        fail(f"{label}: rank stats {stats}")
+        fail(f"{label}: rank stats files {names}, stats {stats}")
     for s in stats:
         if any(s["launches"][k] <= 0 for k in want):
             fail(f"{label}: rank {s['rank']} launched {s['launches']}, expected {want}")
@@ -2973,7 +3205,7 @@ def run_dp_cli(syn: str, fit_rate_1rank: float) -> dict:
                                timeout=600, tag="[7] (b)")
         backends = sorted({line.split("backend ")[1].split(",")[0] for line in out.splitlines()
                            if line.startswith("rank ") and "backend " in line})
-        stats = rank_stats(out, "fit, 2 ranks", ("flash_fwd", "flash_bwd", "pointer_argmax"))
+        stats = rank_stats(tmp, "fit, 2 ranks", ("flash_fwd", "flash_bwd", "pointer_argmax"))
         for s in stats:
             total.update(s["launches"])
         records = read_jsonl(os.path.join(log("dp2"), "metrics.jsonl"))
@@ -3009,7 +3241,7 @@ def run_dp_cli(syn: str, fit_rate_1rank: float) -> dict:
                                  str(ranks), "decode.mode", "fused", "decode.precision", "fp32",
                                  tag="[7] (b)")
             if ranks == 2:
-                for s in rank_stats(out, "test, 2 ranks", ("decode_step", "flash_fwd")):
+                for s in rank_stats(tmp, "test, 2 ranks", ("decode_step", "flash_fwd")):
                     total.update(s["launches"])
             else:
                 total.update(st["launches"])
