@@ -2,6 +2,7 @@
 """Drive the PyTorch port (faceformer_tpu_torch) once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --cards 4     # [1] and [12] alone, on four cards
 
 Phases (each prints one or more lines; any failure exits non-zero):
   1. device: the card, its power limit, and the nvcc build of every kernel
@@ -180,6 +181,34 @@ Phases (each prints one or more lines; any failure exits non-zero):
      datasets' default);
   11. one JSON summary of the kernels, the card line, and the result line.
 
+With ``--cards 4`` it runs [1], then [12], then the card line and the
+result line, and exits 1 with fewer than four visible cards:
+  12. the data and model axes over nccl, four ranks on four cards, one a
+     rank (parallel/mesh.py picks nccl where each rank has a card):
+     each card's name and power limit and ``nvidia-smi topo -m``; (a) [7]
+     (a)'s fp32 steps on four ranks against one rank on card 0, with
+     [7] (a)'s gates and planted faults, every rank on nccl and a card of
+     its own, the gradient all-reduce timed, and the transports NCCL chose
+     (NCCL_DEBUG=INFO, read from its files), while [5]'s corpus is
+     written on the host beside it; (b) ``main ... trainer.num_devices 4``
+     on that corpus at configs/synthetic-big.yml as written: one epoch,
+     one writer, K2 and K3 on every rank, then its checkpoint tested in
+     fp32 on four ranks and on one under causal_cache and fused: JSONs
+     byte-equal, metrics equal and equal to the means over the JSONs;
+     (c) ``parallel.dryrun.dryrun_multichip(4)`` (mesh (2x2), nccl, the
+     flagship at 6+6 layers), then [9] (a)'s fp32 steps on data 2 x model
+     2 against one rank in deterministic mode: losses, the first step's
+     gathered gradients and the parameters within [9]'s gates, its
+     planted fault beyond them, the model-axis collectives a step; (d)
+     K1-K4 on tensors of cards 1, 2 and 3 while card 0 is current
+     (tests/test_torch_gpu.py's check): launched there, equal to their
+     plain versions there, card 0 current afterwards; (e) the training
+     step at 8 rows a card on four ranks, remat full and off: step ms by
+     CUDA events, samples/s, the gradient all-reduce's share, each rank's
+     peak memory, and a projection of one seed of the 2e recipe against a
+     3,600 s call (figures only). The launches a rank of each part on a
+     JSON line.
+
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
 """
@@ -189,6 +218,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -260,10 +290,13 @@ def run_command(argv, cwd, timeout) -> subprocess.CompletedProcess:
     return subprocess.CompletedProcess(argv, proc.returncode, out, err)
 
 
-def nvidia_smi() -> str:
-    return subprocess.run(
+def nvidia_smi(every_card: bool = False):
+    """The first card's name and power limit as nvidia-smi gives them (a
+    line a card, as a list, with ``every_card``)."""
+    lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return lines if every_card else lines[0]
 
 
 SPIN_CYCLES = 35_000_000  # ~20 ms of the card's clock
@@ -1975,17 +2008,17 @@ def run_cli_phase(train_rates, syn):
     return dict(total), numbers
 
 
-def make_cli_corpus(root: str) -> str:
+def make_cli_corpus(root: str, tag: str = "[5]") -> str:
     """[5]'s corpus (``tools.synthetic_data`` with CLI_GEN) under ``root``,
-    which [7] trains on again. Returns its directory."""
+    which [7] and [12] train on again. Returns its directory."""
     syn = os.path.join(root, "syn")
     run_cli(root, "synthetic_data", "faceformer_tpu_torch.tools.synthetic_data",
-            "--root", syn, *CLI_GEN)
+            "--root", syn, *CLI_GEN, tag=tag)
     split = []
     for name in ("train.txt", "valid.txt", "test.txt"):
         with open(os.path.join(syn, name)) as f:
             split.append(sum(1 for line in f if line.strip()))
-    print(f"[5] corpus: {CLI_NUM} rich solids, split train/valid/test {split}", flush=True)
+    print(f"{tag} corpus: {CLI_NUM} rich solids, split train/valid/test {split}", flush=True)
     if tuple(split) != CLI_SPLIT:
         fail(f"corpus split {split}, expected {CLI_SPLIT}")
     return syn
@@ -2992,7 +3025,9 @@ def dp_setup(seed, dev, remat=True, config="configs/ours.yml"):
     model = SurfaceFormerParallel(cfg.model, generator=gen, device=dev)
     jitter_affine_(model, gen)
     rng = np.random.default_rng(seed + 7)
-    batch = training_batch(rng, random_wireframes(rng, 32), cfg.model, dev)
+    lines = cfg.model.num_lines  # 60..216 edges at the `ours` width
+    batch = training_batch(rng, random_wireframes(rng, 32, min(60, lines // 2), min(216, lines)),
+                           cfg.model, dev)
     return cfg, model, batch
 
 
@@ -3015,22 +3050,45 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def dp_rank(seed: int, out_dir: str, device: str = "cuda",
-            config: str = "configs/ours.yml") -> None:
-    """A rank of [7] (a), started by ``parallel.mesh.spawn``: DP_STEPS steps
-    on rows r, r + W, ... of the batch; then the gradient all-reduce alone,
-    timed; then the same steps under two planted faults (each rank on its
-    own token mean with no all-reduce; DDP's mean of the ranks' means)."""
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """Torch's deterministic kernels (where ``on``): the gathers' backward
+    adds atomically otherwise, and two runs part by ~1e-4 of a gradient
+    leaf's magnitude ([7] (d)). Their warnings (cuBLAS's workspace, once an
+    op) are silenced."""
     import torch
+
+    if not on:
+        yield
+        return
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def dp_rank(seed: int, out_dir: str, device: str = "cuda",
+            config: str = "configs/ours.yml", size: int = 2) -> None:
+    """A rank of [7] (a) or [12] (a), one of ``size`` started by
+    ``parallel.mesh.spawn``: DP_STEPS steps on rows r, r + W, ... of the
+    batch; then the gradient all-reduce alone, timed; then the same steps
+    under two planted faults (each rank on its own token mean with no
+    all-reduce; DDP's mean of the ranks' means)."""
+    import torch
+    from faceformer_tpu_torch import ops
     from faceformer_tpu_torch.parallel import mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    world = mesh.make_mesh(2, device)
+    world = mesh.make_mesh(size, device)
     cfg, model, batch = dp_setup(seed, world.device, config=config)
     rows = {k: v[world.rank::world.size].contiguous() for k, v in batch.items()}
     mesh.replicated(world, model)
     init = dp_params(model)
     out = {"rank": world.rank, "backend": world.backend, "rows": len(rows["label"]),
+           "device": (torch.cuda.current_device() if world.device.type == "cuda" else None),
            "losses": dp_steps(model, cfg, rows, world)}
     out["params"] = {k: v.cpu() for k, v in dp_params(model).items()}
     grads = [p.grad for p in model.parameters()]
@@ -3065,6 +3123,7 @@ def dp_rank(seed: int, out_dir: str, device: str = "cuda",
         finally:
             mesh.all_reduce_ = real
         out["faults"][fault] = {k: v.cpu() for k, v in dp_params(model).items()}
+    out["launches"] = dict(ops.LAUNCHES)  # the rank's, from its start
     torch.save(out, os.path.join(out_dir, f"rank{world.rank}.pt"))
 
 
@@ -3080,48 +3139,83 @@ def dp_distance(got: dict, want: dict, init: dict) -> float:
     return (num / den) ** 0.5
 
 
-def run_dp_ranks(seed: int, device: str = "cuda", config: str = "configs/ours.yml") -> None:
-    """[7] (a): two ranks on the one card (gloo, started through
-    ``parallel.mesh.spawn``) against one rank, fp32."""
+def dp_reference(seed: int, device: str = "cuda", config: str = "configs/ours.yml") -> dict:
+    """One rank's DP_STEPS steps on the whole batch: its initial and final
+    parameters (on the host) and its losses."""
     import torch
-    from faceformer_tpu_torch.parallel import mesh
 
-    t0 = time.perf_counter()
     cfg, model, batch = dp_setup(seed, torch.device(device), config=config)
     init = {k: v.cpu() for k, v in dp_params(model).items()}
-    want_losses = dp_steps(model, cfg, batch)
+    losses = dp_steps(model, cfg, batch)
     want = {k: v.cpu() for k, v in dp_params(model).items()}
     del model, batch
     if device == "cuda":
         torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
-        t1 = time.perf_counter()
-        mesh.spawn(2, dp_rank, seed, out_dir, device, config)
-        ranks_s = time.perf_counter() - t1
-        got = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in (0, 1)]
+    return {"init": init, "losses": losses, "params": want}
+
+
+def dp_report(out_dir: str, ranks: int, ref: dict, backend=None, tag: str = "[7] (a)") -> dict:
+    """Reads the ``ranks`` files ``dp_rank`` wrote to ``out_dir``, prints
+    them against one rank's (``dp_reference``) and fails unless they train
+    as one rank does: DP_LOSS_MAX on the losses, DP_UPDATE_MAX on the
+    update distance, every rank's parameters bitwise equal to rank 0's, both
+    planted faults beyond the gate; where ``backend`` is given, every rank
+    on it and, under nccl, on a card of its own. Returns the readings."""
+    import torch
+
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(ranks)]
+    want, init, want_losses = ref["params"], ref["init"], ref["losses"]
     r0 = got[0]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want_losses))
-    same_ranks = all(torch.equal(r0["params"][k], got[1]["params"][k]) for k in want)
+    same_ranks = all(torch.equal(r0["params"][k], g["params"][k]) for g in got[1:] for k in want)
     dist = dp_distance(r0["params"], want, init)
     faults = {name: dp_distance(p, want, init) for name, p in r0["faults"].items()}
     keys = {k: float((r0["params"][k] - want[k]).abs().max()) for k in want
             if k.endswith("attn.k.bias")}
-    print(f"[7] (a) 2 ranks on one card, backend {r0['backend']}, {r0['rows']} rows a rank, "
-          f"against 1 rank at N=32: fp32 `ours` width, dropout 0, remat full, {DP_STEPS} Adam "
-          f"steps at lr {DP_LR}: losses {r0['losses']} vs {want_losses} (largest relative "
-          f"difference {loss_err:.3g}, gate {DP_LOSS_MAX}); the two ranks' parameters "
-          f"bitwise equal: {same_ranks}; update distance ||p2 - p1|| / ||p1 - p0|| {dist:.3g} "
-          f"(gate {DP_UPDATE_MAX}); planted faults: "
+    backends = [g["backend"] for g in got]
+    devices = [g["device"] for g in got]
+    where = "on one card" if len(set(devices)) == 1 else f"on cards {devices}"
+    print(f"{tag} {ranks} ranks {where}, backend {sorted(set(backends))}, {r0['rows']} rows a "
+          f"rank, against 1 rank at N={ranks * r0['rows']}: fp32 `ours` width, dropout 0, remat "
+          f"full, {DP_STEPS} Adam steps at lr {DP_LR}: losses {r0['losses']} vs {want_losses} "
+          f"(largest relative difference {loss_err:.3g}, gate {DP_LOSS_MAX}); the ranks' "
+          f"parameters bitwise equal: {same_ranks}; update distance ||p2 - p1|| / ||p1 - p0|| "
+          f"{dist:.3g} (gate {DP_UPDATE_MAX}); planted faults: "
           + ", ".join(f"{k} {v:.3g}" for k, v in faults.items())
           + f"; attention key biases (left out) differ by up to {max(keys.values()):.3g}; the "
-          f"gradient all-reduce {r0['allreduce_bytes']} B a step through gloo: "
-          f"{r0['allreduce_ms']:.2f} ms; ranks {ranks_s:.1f} s, (a) "
-          f"{time.perf_counter() - t0:.1f} s",
+          f"gradient all-reduce {r0['allreduce_bytes']} B a step through {r0['backend']}: "
+          f"{r0['allreduce_ms']:.2f} ms (ranks {[round(g['allreduce_ms'], 2) for g in got]})",
           flush=True)
+    if backend is not None and (backends != [backend] * ranks or (
+            backend == "nccl" and len(set(devices)) != ranks)):
+        fail(f"{tag}: backends {backends} on cards {devices}, {backend} on a card a rank "
+             "expected")
     if loss_err > DP_LOSS_MAX or not same_ranks or dist > DP_UPDATE_MAX:
-        fail("[7] (a): two ranks do not train as one rank does")
+        fail(f"{tag}: {ranks} ranks do not train as one rank does")
     if min(faults.values()) <= DP_UPDATE_MAX:
-        fail("[7] (a): a planted fault reads within the gate")
+        fail(f"{tag}: a planted fault reads within the gate")
+    return {"loss_err": loss_err, "distance": dist, "faults": faults, "backends": backends,
+            "devices": devices, "allreduce_bytes": r0["allreduce_bytes"],
+            "allreduce_ms": [g["allreduce_ms"] for g in got],
+            "launches": [g["launches"] for g in got]}
+
+
+def run_dp_ranks(seed: int, device: str = "cuda", config: str = "configs/ours.yml",
+                 ranks: int = 2, backend=None, tag: str = "[7] (a)") -> dict:
+    """[7] (a) (two gloo ranks on the one card) and [12] (a) (four nccl
+    ranks, a card each): ``ranks`` ranks started through
+    ``parallel.mesh.spawn`` against one rank, fp32 (``dp_report``)."""
+    from faceformer_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    ref = dp_reference(seed, device, config)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
+        t1 = time.perf_counter()
+        mesh.spawn(ranks, dp_rank, seed, out_dir, device, config, ranks)
+        ranks_s = time.perf_counter() - t1
+        readings = dp_report(out_dir, ranks, ref, backend, tag)
+    print(f"{tag} ranks {ranks_s:.1f} s, in all {time.perf_counter() - t0:.1f} s", flush=True)
+    return readings
 
 
 def counted_rank(fn, *args) -> None:
@@ -3144,11 +3238,11 @@ def counted_rank(fn, *args) -> None:
     os.replace(os.path.join(out, f"rank{rank}.json.tmp"), os.path.join(out, f"rank{rank}.json"))
 
 
-def rank_stats(cwd: str, label: str, want) -> list:
-    """The stats of both ranks of the command line just run from ``cwd``
-    (``counted_rank``'s files, removed once read, so that the next command
-    line writes its own); fails unless each launched every kernel of
-    ``want``."""
+def rank_stats(cwd: str, label: str, want, ranks: int = 2) -> list:
+    """The stats of the ``ranks`` ranks of the command line just run from
+    ``cwd`` (``counted_rank``'s files, removed once read, so that the next
+    command line writes its own); fails unless each launched every kernel
+    of ``want``."""
     out = os.path.join(cwd, RANK_STATS_DIR)
     names = sorted(os.listdir(out)) if os.path.isdir(out) else []
     stats = []
@@ -3157,7 +3251,7 @@ def rank_stats(cwd: str, label: str, want) -> list:
             stats.append(json.load(f))
     shutil.rmtree(out, ignore_errors=True)
     stats.sort(key=lambda s: s["rank"])
-    if [s["rank"] for s in stats] != [0, 1]:
+    if [s["rank"] for s in stats] != list(range(ranks)):
         fail(f"{label}: rank stats files {names}, stats {stats}")
     for s in stats:
         if any(s["launches"][k] <= 0 for k in want):
@@ -3186,81 +3280,102 @@ def json_means(records: dict) -> dict:
             for i, k in enumerate(("precision", "recall", "type_acc"))}
 
 
-def run_dp_cli(syn: str, fit_rate_1rank: float) -> dict:
-    """[7] (b): ``main ... trainer.num_devices 2`` on [5]'s corpus (two gloo
-    ranks on one card, started by the command line itself): one epoch with
-    validation and a checkpoint; then the checkpoint tested with the fused
-    engine in fp32 at two ranks and at one. Returns the launches."""
+def run_dp_cli(syn: str, fit_rate_1rank=None, ranks: int = 2, engines=("fused",),
+               backend: str = "gloo", tag: str = "[7] (b)") -> dict:
+    """[7] (b) and [12] (b): ``main ... trainer.num_devices <ranks>`` on
+    [5]'s corpus (the ranks started by the command line itself: two gloo
+    ranks on one card, or four nccl ranks a card each): one epoch with
+    validation and a checkpoint; then the checkpoint tested in fp32 with
+    each of ``engines`` at ``ranks`` ranks and at one: the JSONs byte-equal,
+    the metrics equal to each other and to their means over the JSONs.
+    Returns the launches, every rank's, and the fit's seconds."""
     total = collections.Counter()
     t0 = time.perf_counter()
+    version = f"dp{ranks}"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_cli_") as tmp:
         base = ("root_dir", syn, "trainer.name", "smoke")
 
         def log(version):
             return os.path.join(tmp, "logs", "smoke", version)
 
-        out, _, wall = run_cli(tmp, "fit, 2 ranks, 1 epoch", MAIN, "--config-file", CLI_CONFIG,
-                               *base, "trainer.version", "dp2", "trainer.num_devices", "2",
-                               "trainer.max_epochs", "1", "trainer.checkpoint_period", "1",
-                               timeout=600, tag="[7] (b)")
+        out, _, wall = run_cli(tmp, f"fit, {ranks} ranks, 1 epoch", MAIN, "--config-file",
+                               CLI_CONFIG, *base, "trainer.version", version,
+                               "trainer.num_devices", str(ranks), "trainer.max_epochs", "1",
+                               "trainer.checkpoint_period", "1", timeout=600, tag=tag)
         backends = sorted({line.split("backend ")[1].split(",")[0] for line in out.splitlines()
                            if line.startswith("rank ") and "backend " in line})
-        stats = rank_stats(tmp, "fit, 2 ranks", ("flash_fwd", "flash_bwd", "pointer_argmax"))
+        stats = rank_stats(tmp, f"fit, {ranks} ranks", ("flash_fwd", "flash_bwd",
+                                                        "pointer_argmax"), ranks)
         for s in stats:
             total.update(s["launches"])
-        records = read_jsonl(os.path.join(log("dp2"), "metrics.jsonl"))
+        by_rank = {"fit": [s["launches"] for s in stats]}
+        records = read_jsonl(os.path.join(log(version), "metrics.jsonl"))
         losses = [r["train_loss"] for r in records if "train_loss" in r]
         timing = [r for r in records if "epoch_train_seconds" in r]
         steps = CLI_SPLIT[0] // 32
         per_step = 6 + 2 * 6
-        files = sorted(os.listdir(log("dp2")))
-        print(f"[7] (b) fit 2 ranks: backend {backends}; {len(losses)} train_loss lines, "
+        files = sorted(os.listdir(log(version)))
+        beside = ("" if fit_rate_1rank is None else
+                  f" against [5]'s one rank {fit_rate_1rank:.2f}")
+        print(f"{tag} fit {ranks} ranks: backend {backends}; {len(losses)} train_loss lines, "
               f"{sum('valid_precision' in r for r in records)} validation; files {files}; "
-              f"checkpoints {sorted(os.listdir(os.path.join(log('dp2'), 'checkpoints')))}; "
+              f"checkpoints {sorted(os.listdir(os.path.join(log(version), 'checkpoints')))}; "
               f"launches a rank {[{k: v for k, v in s['launches'].items() if v} for s in stats]}; "
               f"peak memory a rank {[s['max_memory_allocated'] for s in stats]}; fit "
-              f"samples/s {timing[0]['train_samples_per_s']:.2f} (two ranks, one card) against "
-              f"[5]'s one rank {fit_rate_1rank:.2f}; wall {wall:.1f} s", flush=True)
+              f"samples/s {timing[0]['train_samples_per_s']:.2f}{beside}; epoch timing "
+              f"{timing[0]}; wall {wall:.1f} s", flush=True)
         if (len(losses) != steps or not all(x is not None and np.isfinite(x) for x in losses)
                 or sum("valid_precision" in r for r in records) != 1 or len(timing) != 1
                 or sum(f.startswith("events.out.tfevents") for f in files) != 1
-                or not os.path.isfile(os.path.join(log("dp2"), "checkpoints", "last"))):
-            fail("[7] (b) fit 2 ranks: not one writer's logs of one epoch and its checkpoint")
-        if backends != ["gloo"]:
-            fail(f"[7] (b): backends {backends}, gloo expected for two ranks on one card")
+                or not os.path.isfile(os.path.join(log(version), "checkpoints", "last"))):
+            fail(f"{tag} fit {ranks} ranks: not one writer's logs of one epoch and its "
+                 "checkpoint")
+        if backends != [backend]:
+            fail(f"{tag}: backends {backends}, {backend} expected for {ranks} ranks")
         for s in stats:
             if s["launches"]["flash_bwd"] != steps * per_step:
-                fail(f"[7] (b) fit: rank {s['rank']} K3 launches {s['launches']['flash_bwd']}")
+                fail(f"{tag} fit: rank {s['rank']} K3 launches {s['launches']['flash_bwd']}")
 
-        last = os.path.join(log("dp2"), "checkpoints", "last")
-        tests = {}
-        for ranks in (2, 1):
-            out, st, _ = run_cli(tmp, f"test last, fused fp32, {ranks} rank(s)", MAIN,
-                                 "--config-file", CLI_CONFIG, "--test_ckpt", last, *base,
-                                 "trainer.version", f"test-{ranks}", "trainer.num_devices",
-                                 str(ranks), "decode.mode", "fused", "decode.precision", "fp32",
-                                 tag="[7] (b)")
-            if ranks == 2:
-                for s in rank_stats(tmp, "test, 2 ranks", ("decode_step", "flash_fwd")):
-                    total.update(s["launches"])
-            else:
-                total.update(st["launches"])
-            with open(os.path.join(log(f"test-{ranks}"), "results.json")) as f:
-                tests[ranks] = (read_records(os.path.join(log(f"test-{ranks}"), "json"),
-                                             CLI_SPLIT[2]), json.load(f))
-        means = json_means(tests[2][0])
-        same = tests[2][0] == tests[1][0]
-        with open(os.path.join(log("test-2"), "metrics.jsonl")) as f:
-            writer_lines = len(f.readlines())
-        print(f"[7] (b) test fused fp32: 2 ranks {tests[2][1]}; 1 rank {tests[1][1]}; the "
-              f"{CLI_SPLIT[2]} JSONs byte-equal: {same}; their means {means}; the 2-rank "
-              f"test's metrics.jsonl lines {writer_lines}", flush=True)
-        if not same or writer_lines != 1 or tests[2][1]["num_samples"] != CLI_SPLIT[2]:
-            fail("[7] (b) test: two ranks and one rank disagree, or not one writer")
-        if any(abs(tests[2][1][k] - v) > 1e-12 for k, v in means.items()):
-            fail("[7] (b) test: the two-rank metrics are not the means over the JSONs")
-    print(f"[7] (b) took {time.perf_counter() - t0:.1f} s", flush=True)
-    return dict(total)
+        last = os.path.join(log(version), "checkpoints", "last")
+        tested = {}
+        for engine in engines:
+            tests = {}
+            for n in (ranks, 1):
+                name = f"test-{engine}-{n}"
+                out, st, _ = run_cli(tmp, f"test last, {engine} fp32, {n} rank(s)", MAIN,
+                                     "--config-file", CLI_CONFIG, "--test_ckpt", last, *base,
+                                     "trainer.version", name, "trainer.num_devices", str(n),
+                                     "decode.mode", engine, "decode.precision", "fp32", tag=tag)
+                kernel = "decode_step" if engine == "fused" else "pointer_argmax"
+                if n > 1:
+                    stats = rank_stats(tmp, f"test, {ranks} ranks", (kernel, "flash_fwd"), ranks)
+                    for s in stats:
+                        total.update(s["launches"])
+                    by_rank[f"test {engine}"] = [s["launches"] for s in stats]
+                else:
+                    total.update(st["launches"])
+                with open(os.path.join(log(name), "results.json")) as f:
+                    tests[n] = (read_records(os.path.join(log(name), "json"), CLI_SPLIT[2]),
+                                json.load(f))
+            means = json_means(tests[ranks][0])
+            same = tests[ranks][0] == tests[1][0]
+            with open(os.path.join(log(f"test-{engine}-{ranks}"), "metrics.jsonl")) as f:
+                writer_lines = len(f.readlines())
+            metric_diff = max(abs(tests[ranks][1][k] - tests[1][1][k]) for k in means)
+            print(f"{tag} test {engine} fp32: {ranks} ranks {tests[ranks][1]}; 1 rank "
+                  f"{tests[1][1]}; the {CLI_SPLIT[2]} JSONs byte-equal: {same}; their means "
+                  f"{means}; the metrics' largest difference {metric_diff:.3g}; the {ranks}-rank "
+                  f"test's metrics.jsonl lines {writer_lines}", flush=True)
+            if (not same or writer_lines != 1 or tests[ranks][1]["num_samples"] != CLI_SPLIT[2]
+                    or metric_diff > 1e-12):
+                fail(f"{tag} test {engine}: {ranks} ranks and one rank disagree, or not one "
+                     "writer")
+            if any(abs(tests[ranks][1][k] - v) > 1e-12 for k, v in means.items()):
+                fail(f"{tag} test {engine}: the {ranks}-rank metrics are not the means over "
+                     "the JSONs")
+            tested[engine] = tests[ranks][1]
+    print(f"{tag} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": dict(total), "by_rank": by_rank, "timing": timing[0], "tests": tested}
 
 
 def run_nccl_world_one(seed: int) -> None:
@@ -3467,7 +3582,7 @@ def run_ranks_phase(seed: int, rng, syn: str, fit_rate_1rank: float) -> dict:
     """Phase 7. Returns the launches of (b)'s command lines, every rank's."""
     t_phase = time.perf_counter()
     run_dp_ranks(seed)
-    launches = run_dp_cli(syn, fit_rate_1rank)
+    launches = run_dp_cli(syn, fit_rate_1rank)["launches"]
     run_nccl_world_one(seed)
     run_remat_policies(seed, rng)
     run_profile_tool()
@@ -3989,23 +4104,61 @@ def tp_flat_grids(model, mc, batch) -> tuple:
     return grids, seconds
 
 
-def tp_reference(seed: int, out_dir: str) -> dict:
-    """One rank: (a)'s and (b)'s steps, (c)'s grids, and the flat model's
-    (f) and (g) steps and (h) grids; the parameters after (a)'s and (f)'s
-    steps go to ``out_dir`` for the ranks."""
+def data_split_grads(model, cfg, batch, parts: int) -> dict:
+    """The first step's gradients as ``parts`` data ranks make them, on one
+    rank: each part's rows (r, r + parts, ...) through its own forward and
+    backward of its loss over the whole batch's label tokens, the parts'
+    gradients summed in part order."""
+    from faceformer_tpu_torch.parallel.tensor import gather_params
+    from faceformer_tpu_torch.train.loss import summed_cross_entropy
+
+    losses, tokens = [], 0.0
+    for r in range(parts):
+        out = model.forward_train({k: v[r::parts].contiguous() for k, v in batch.items()},
+                                  precision=cfg.trainer.precision)
+        loss_sum, aux = summed_cross_entropy(out, cfg.model.token)
+        losses.append(loss_sum)
+        tokens += float(aux["valid_tokens"])
+    total = {}
+    for loss_sum in losses:
+        model.zero_grad(set_to_none=True)
+        (loss_sum / tokens).backward()
+        for k, g in gather_params(model, grads=True).items():
+            total[k] = g if k not in total else total[k] + g
+    return {k: v.cpu() for k, v in total.items()}
+
+
+def tp_reference(seed: int, out_dir: str, full: bool = True) -> dict:
+    """One rank: (a)'s steps (the first step's gradients kept), and where
+    ``full`` ([9]; [12] (c) takes (a) alone) (b)'s steps, (c)'s grids, and
+    the flat model's (f) and (g) steps and (h) grids; the parameters after
+    (a)'s and (f)'s steps and (a)'s gradients go to ``out_dir`` for the
+    ranks."""
     import torch
 
     dev = torch.device("cuda")
-    ref = {}
-    for label, precision, dropout in (("fp32", "fp32", 0.0), ("bf16", "bf16", 0.2)):
+    ref, grads = {}, {}
+    for label, precision, dropout in (("fp32", "fp32", 0.0), ("bf16", "bf16", 0.2))[:1 + full]:
         cfg, model, batch = tp_setup(seed, dev, precision, dropout)
         ref[label] = {"param_bytes": sum(nbytes(p) for p in model.parameters())}
-        losses, after = tp_steps(model, cfg, batch, seed, timed=ref[label])
+        fp32 = label == "fp32"
+        losses, after = tp_steps(model, cfg, batch, seed, timed=ref[label],
+                                 grads=grads if fp32 else None)
         ref[label]["losses"] = losses
-        if label == "fp32":
+        if fp32:
             params = after
         del model, batch
         torch.cuda.empty_cache()
+    if not full:
+        # the rounding control of [12] (c): the same gradients from the data
+        # ranks' halves of the batch, summed, on this rank alone
+        cfg, model, batch = tp_setup(seed, dev, "fp32", 0.0)
+        ref["split_control"] = grad_errors(data_split_grads(model, cfg, batch, CARDS // 2),
+                                           grads)
+        del model, batch
+        torch.cuda.empty_cache()
+        torch.save({"params": params, "grads": grads}, os.path.join(out_dir, "want.pt"))
+        return ref
     cfg, model, batch = tp_setup(seed, dev, "fp32", 0.0)
     grids, ref["decode_peak"] = tp_grids(model, cfg.model, batch)
     del model, batch
@@ -4033,17 +4186,20 @@ def tp_reference(seed: int, out_dir: str) -> dict:
     cfg, model, batch = tp_flat_setup(seed, dev, "fp32", 0.0)
     flat_grids, flat["decode_s"] = tp_flat_grids(model, cfg.model, batch)
     ref["flat"] = flat
-    torch.save({"params": params, "grids": grids, "ref": ref, "flat_params": flat_params,
-                "flat_grads": flat_grads, "flat_grids": flat_grids},
+    torch.save({"params": params, "grads": grads, "grids": grids, "ref": ref,
+                "flat_params": flat_params, "flat_grads": flat_grads, "flat_grids": flat_grids},
                os.path.join(out_dir, "want.pt"))
     del model, batch
     torch.cuda.empty_cache()
     return ref
 
 
-def tp_rank(seed: int, out_dir: str) -> None:
+def tp_rank(seed: int, out_dir: str, size: int = 2) -> None:
     """A rank of [9], started by ``parallel.mesh.spawn`` on a grid of one
-    data rank and two model ranks: (a) fp32 steps, the model-axis
+    data rank and two model ranks, or of [12] (c) on a grid of ``size`` //
+    2 data ranks (each on its rows of the batch) and two model ranks, which
+    runs (a) alone: (a) fp32 steps (the first step's gathered gradients
+    kept), the model-axis
     collectives counted and timed, K2's and K3's heads and head offset a
     call recorded, then the same steps under the planted fault (each rank
     adds the row-parallel biases before the sum); (b) bf16 steps with
@@ -4065,10 +4221,15 @@ def tp_rank(seed: int, out_dir: str) -> None:
     from faceformer_tpu_torch.parallel import mesh, tensor
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    world = mesh.make_mesh(2, "cuda", model_axis=2)
+    world = mesh.make_mesh(size, "cuda", model_axis=2)
     dev = world.device
     want = torch.load(os.path.join(out_dir, "want.pt"))
-    out = {"rank": world.rank, "backend": world.backend, "launches": collections.Counter()}
+    out = {"rank": world.rank, "backend": world.backend, "launches": collections.Counter(),
+           "device": torch.cuda.current_device()}
+
+    def mine(batch):  # the data rank's rows (all of them at one data rank)
+        return {k: v[world.data_rank::world.data_size].contiguous() for k, v in batch.items()}
+
     probe = torch.full((8,), 1.5, dtype=torch.bfloat16, device=dev)
     try:
         dist.all_reduce(probe, group=world.model_group)
@@ -4143,14 +4304,15 @@ def tp_rank(seed: int, out_dir: str) -> None:
         return tensor.reduce_from_model(
             x @ lin.weight.to(x.dtype).t() + lin.bias.to(x.dtype), shard)
 
-    def fault_steps(setup, params_want, init):
+    def fault_steps(setup, params_want, init, grads=None):
         """The fp32 steps under the planted fault: (losses, parameter
-        distance)."""
+        distance); the first step's gathered gradients into ``grads`` when
+        given."""
         layers.row_linear = planted
         try:
             cfg, model, batch = setup(seed, dev, "fp32", 0.0)
             tensor.shard_params_(model, world)
-            losses, got = tp_steps(model, cfg, batch, seed, world)
+            losses, got = tp_steps(model, cfg, mine(batch), seed, world, grads=grads)
         finally:
             layers.row_linear = real["row"]
         del model
@@ -4178,13 +4340,16 @@ def tp_rank(seed: int, out_dir: str) -> None:
         captured.clear()
         return fwd, bwd
 
-    with recorded():
+    with recorded(), deterministic(size > 2):
         cfg, model, batch = tp_setup(seed, dev, "fp32", 0.0)
         init = {k: p.detach().cpu() for k, p in model.named_parameters()}
         tensor.shard_params_(model, world)
         out["shard_bytes"] = sum(nbytes(p) for p in model.parameters())
         ops.reset_launches()
-        out["losses"], got = tp_steps(model, cfg, batch, seed, world, timed=timed_run)
+        grads = {}
+        out["losses"], got = tp_steps(model, cfg, mine(batch), seed, world, timed=timed_run,
+                                      grads=grads)
+        out["grad_err"] = grad_errors(grads, want["grads"])
         out["launches_a"] = dict(ops.LAUNCHES)
         out["step_ms"], out["peak"] = timed_run["step_ms"], timed_run["peak"]
         out["launches"].update(ops.LAUNCHES)
@@ -4193,9 +4358,17 @@ def tp_rank(seed: int, out_dir: str) -> None:
         out["checksum"] = [float(v.double().sum()) for v in got.values()]
         out["key_bias_diff"] = max(float((got[k] - want["params"][k]).abs().max()) for k in got
                                    if k.endswith("attn.k.bias"))
-        del model, got
+        del model, got, grads
         torch.cuda.empty_cache()
-        out["fault_distance"] = fault_steps(tp_setup, want["params"], init)[1]
+        fault_grads = {} if size > 2 else None
+        out["fault_losses"], out["fault_distance"] = fault_steps(tp_setup, want["params"], init,
+                                                                 fault_grads)
+        if size > 2:
+            out["fault_grad_err"] = grad_errors(fault_grads, want["grads"])
+            out["heads"] = {k: sorted(v) for k, v in heads.items()}
+            out["launches"] = dict(out["launches"])
+            torch.save(out, os.path.join(out_dir, f"tp_rank{world.rank}.pt"))
+            return
 
         # (b) bf16, dropout 0.2
         cfg, model, batch = tp_setup(seed, dev, "bf16", 0.2)
@@ -4442,7 +4615,9 @@ def run_tp_phase(seed: int) -> dict:
           f"{r0['backend']}), each 4 of the 8 heads and 512 of the 1024 FFN columns, against 1 "
           f"rank: fp32 `ours` width, N={TP_ROWS}, dropout 0, {TP_STEPS} Adam steps: losses "
           f"{r0['losses']} vs {ref['fp32']['losses']} (largest relative difference "
-          f"{loss_err:.3g}, gate {TP_LOSS_MAX}); parameter distance "
+          f"{loss_err:.3g}, gate {TP_LOSS_MAX}); the first step's gathered gradients, each "
+          f"rank's worst leaf relative to its largest magnitude (no gate here; [12] (c) holds "
+          f"them) {[g['grad_err']['worst'][0] for g in got]}; parameter distance "
           f"{[g['distance'] for g in got]} (gate {TP_UPDATE_MAX}); planted fault (row-parallel "
           f"bias added on both ranks) {[g['fault_distance'] for g in got]}; the ranks' gathered "
           f"parameters equal: {got[0]['checksum'] == got[1]['checksum']}; key biases (left out) "
@@ -4518,45 +4693,407 @@ def run_tp_phase(seed: int) -> dict:
     return dict(launches)
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--tie-readings", default="", metavar="SEEDS",
-                        help="comma-separated seeds: print only the readings the flat bf16 "
-                             "serving check's limits are set from (flat_tie_readings)")
-    args = parser.parse_args()
-    # Every process this script starts imports torch, and a host that sets
-    # PYTHONDONTWRITEBYTECODE compiles torch's sources again in each one
-    # (~7 s a process on the card machine): keep their bytecode under the
-    # checkout's build/ instead, for this process and every one it starts.
-    pycache = os.path.join(REPO, "build", "pycache")
-    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
-    os.environ["PYTHONPYCACHEPREFIX"] = pycache
-    sys.dont_write_bytecode, sys.pycache_prefix = False, pycache
+# ---------------------------------------------------------------------------
+# phase 12 (--cards 4): the data and model axes on four cards over nccl
+# ---------------------------------------------------------------------------
 
+CARDS = 4
+# (d): test_wrappers_launch_on_their_tensors_card's check (tests/test_torch_gpu.py):
+# fp32, K2 and K3 within TENSORS_CARD_TOL of their plain versions, K1's and
+# K4's tokens equal; K4 at that file's small decoder (CFG)
+TENSORS_CARD_TOL = 1e-4
+# (c): the first step's gathered gradients of data 2 x model 2 within
+# CARDS_GRAD_MAX of one rank's, each leaf relative to its largest magnitude
+# (grad_errors). [9] holds no gradient of the parallel model; the flat
+# model's TP_FLAT_GRAD_MAX (model axis alone) reads 1.79e-4 here, at the
+# encoder's q weights: at init the attention is near uniform, so q's
+# gradient is a small sum of cancelling terms, and any other order of
+# those sums moves it by that much. The gate lies between that reading
+# (deterministic kernels on both sides) and the planted fault's, with the
+# data split's rounding on one rank (data_split_grads) printed beside it
+# (four NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+CARDS_GRAD_MAX = 1e-3
+TENSORS_CARD_K4 = dict(num_points_per_line=8, num_lines=40, max_face_length=12, num_model=128,
+                       num_head=2, num_feedforward=256, num_encoder_layers=2,
+                       num_decoder_layers=2, dropout=0.0)
+# (e): rows a card (configs/synthetic-big.yml's global batch of 32 over four
+# cards), steps timed after the warm-ups; the 2e recipe it projects (ROADMAP
+# item 2e): its steps (logs/SurfaceFormer/big-s0/metrics.jsonl's last), one
+# validation every checkpoint_period 4 of its 40 epochs, 164 valid and 410
+# test solids of the 8,192, eval batches of 32; one chip call's limit
+CARDS_ROWS, CARDS_WARM, CARDS_TIMED = 8, 2, 5
+RECIPE_2E = {"steps": 9_520, "validations": 10, "valid": 164, "test": 410, "batch": 32}
+CALL_S = 3_600
+NCCL_MARKS = ("NVLS", "NCCL version", "nRanks", "Pattern ")
+
+
+def nccl_transport(debug_dir: str) -> dict:
+    """What NCCL_DEBUG=INFO's files under ``debug_dir`` say of the link:
+    the transports its channels took (counted), and its version, NVLS,
+    communicator and search-pattern lines (the link type its graphs
+    found; each once)."""
+    via, lines = collections.Counter(), []
+    for name in sorted(os.listdir(debug_dir)):
+        with open(os.path.join(debug_dir, name), errors="replace") as f:
+            for line in f:
+                text = line.split("NCCL INFO", 1)[-1].strip()
+                if " via " in text:
+                    via[text.split(" via ", 1)[1]] += 1
+                elif any(m in text for m in NCCL_MARKS) and text not in lines:
+                    lines.append(text)
+    return {"via": dict(via), "lines": lines[:24]}
+
+
+def tensors_card_readings(card: int, seed: int = 5) -> dict:
+    """tests/test_torch_gpu.py::test_wrappers_launch_on_their_tensors_card's
+    check ([12] (d) runs it on cards 1-3): each of K1, K2, K3 and K4 given
+    fp32 tensors on card ``card`` while card 0 is current. By kernel: its
+    launches (ops.LAUNCHES), its output's card, and its difference from
+    the plain version on the same tensors (K1's and K4's tokens: the count
+    that differ; K2's and K3's outputs: the largest absolute difference);
+    and the current card after them."""
     import torch
+    from faceformer_tpu_torch import ops
+    from faceformer_tpu_torch.config import ModelConfig
+    from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+    from faceformer_tpu_torch.ops.decode_step import decode_step
+    from faceformer_tpu_torch.ops.flash import (flash_attention_bwd, flash_attention_fwd,
+                                                padding_mask_bias)
+    from faceformer_tpu_torch.ops.pointer import pointer_argmax
+    from faceformer_tpu_torch.params import jitter_affine_
 
-    if not torch.cuda.is_available():
-        print("no CUDA card visible: chip_smoke needs one", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if args.tie_readings:
-        print(f"{torch.cuda.get_device_name(0)}: {nvidia_smi()}", flush=True)
-        flat_tie_readings([int(x) for x in args.tie_readings.split(",")], torch.device("cuda"))
-        return 0
+    dev, f32 = torch.device("cuda", card), torch.float32
+    rng = np.random.default_rng(seed)
+    out = {}
 
+    def run(kernel, name, fn, *args, **kwargs):
+        before = ops.LAUNCHES[name]
+        result = fn(*args, **kwargs)
+        out[kernel] = {"launches": ops.LAUNCHES[name] - before}
+        return result
+
+    with torch.cuda.device(0):
+        rows, memory = (torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
+                        for shape in ((2, 30, 64), (2, 40, 64)))
+        mask = torch.as_tensor(np.arange(40)[None] >= np.array([[40], [25]]), device=dev)
+        got = run("K1", "pointer_argmax", pointer_argmax, rows, memory, mask)
+        out["K1"].update(device=str(got.device), differ=int(
+            (got != pointer_argmax(rows, memory, mask, impl="plain")).sum()))
+
+        q, k, v, do = (torch.as_tensor(rng.standard_normal((2, 24, 2, 32)), dtype=f32,
+                                       device=dev) for _ in range(4))
+        bias = padding_mask_bias(mask[:, :24].contiguous())
+        o, lse = run("K2", "flash_fwd", flash_attention_fwd, q, k, v, bias, causal=True)
+        o_p, lse_p = flash_attention_fwd(q, k, v, bias, causal=True, impl="plain")
+        out["K2"].update(device=str(o.device), err=float((o - o_p).abs().max()))
+        grads = run("K3", "flash_bwd", flash_attention_bwd, q, k, v, bias, lse, do, causal=True)
+        grads_p = flash_attention_bwd(q, k, v, bias, lse_p, do, causal=True, impl="plain")
+        out["K3"].update(device=str(grads[0].device),
+                         err=max(float((a - b).abs().max()) for a, b in zip(grads, grads_p)))
+
+        cfg = ModelConfig(**TENSORS_CARD_K4)
+        gen = torch.Generator().manual_seed(seed)
+        model = SurfaceFormerParallel(cfg, generator=gen, device=dev)
+        jitter_affine_(model, gen)
+        inp = decode_inputs(model, cfg, rng, dev, f32, 3, 5)
+        cache_p = inp["cache"].clone()
+        _, tok = run("K4", "decode_step", decode_step, 5, **inp, num_head=cfg.num_head)
+        _, tok_p = decode_step(5, **{**inp, "cache": cache_p}, num_head=cfg.num_head,
+                               impl="plain")
+        out["K4"].update(device=str(tok.device), differ=int((tok != tok_p).sum()))
+        out["current_after"] = torch.cuda.current_device()
+    return out
+
+
+def tensors_card_failures(card: int, got: dict) -> list:
+    """What ``tensors_card_readings`` of card ``card`` shows wrong."""
+    bad = [f"K{i} {got[f'K{i}']}" for i in range(1, 5)
+           if got[f"K{i}"]["launches"] != 1 or got[f"K{i}"]["device"] != f"cuda:{card}"
+           or got[f"K{i}"].get("differ", 0) or got[f"K{i}"].get("err", 0.0) > TENSORS_CARD_TOL]
+    if got["current_after"] != 0:
+        bad.append(f"card {got['current_after']} current afterwards")
+    return bad
+
+
+def cards_step_rank(seed: int, out_dir: str) -> None:
+    """A rank of [12] (e): configs/synthetic-big.yml as written (the `ours`
+    width, bf16, dropout 0.2, lr 1e-4), CARDS_ROWS seeded wireframes a
+    card, over CARDS nccl ranks; with remat full (as written) and off,
+    CARDS_WARM steps, then CARDS_TIMED steps each timed with CUDA events, as
+    is the gradient all-reduce in each; the rank's peak memory and launches
+    a setting."""
+    import torch
     from faceformer_tpu_torch import ops
     from faceformer_tpu_torch.config import load_config
     from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
-    from faceformer_tpu_torch.ops import _build
+    from faceformer_tpu_torch.parallel import mesh
     from faceformer_tpu_torch.params import jitter_affine_
+    from faceformer_tpu_torch.train.step import make_optimizer, train_step
+    from faceformer_tpu_torch.train.trainer import rank_generator
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    print(f"[1] device {kind} count={torch.cuda.device_count()} nvidia-smi: {smi}", flush=True)
+    world = mesh.make_mesh(CARDS, "cuda")
+    cfg = load_config(CLI_CONFIG)
+    mc = cfg.model
+    gen = torch.Generator().manual_seed(seed + 17)
+    model = SurfaceFormerParallel(mc, generator=gen, device=world.device)
+    jitter_affine_(model, gen)
+    mesh.replicated(world, model)
+    rng = np.random.default_rng(seed + 17 + world.rank)
+    batch = training_batch(rng, random_wireframes(rng, CARDS_ROWS), mc, world.device)
+    optimizer = make_optimizer(model, cfg.trainer)
+    dropout = rank_generator(seed, world.data_rank)
+    real, reduces = mesh.all_reduce_, []
+
+    def timed_reduce(world_, tensors):
+        if len(tensors) == 1:  # the label-token count
+            return real(world_, tensors)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        real(world_, tensors)
+        end.record()
+        reduces.append((start, end))
+
+    def event_ms(pairs):
+        return [a.elapsed_time(b) for a, b in pairs]
+
+    out = {"rank": world.rank, "backend": world.backend, "device": torch.cuda.current_device()}
+    mesh.all_reduce_ = timed_reduce
+    try:
+        for remat in ("full", "off"):
+            model.cfg = dataclasses.replace(mc, remat=remat == "full")
+            torch.cuda.empty_cache()
+            for _ in range(CARDS_WARM):
+                train_step(model, optimizer, batch, dropout, cfg, world=world)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            reduces.clear()
+            steps, losses = [], []
+            for _ in range(CARDS_TIMED):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                losses.append(float(train_step(model, optimizer, batch, dropout, cfg,
+                                               world=world)[0]))
+                end.record()
+                steps.append((start, end))
+            torch.cuda.synchronize()
+            out[remat] = {"step_ms": event_ms(steps), "allreduce_ms": event_ms(reduces),
+                          "peak": torch.cuda.max_memory_allocated(), "losses": losses,
+                          "launches": dict(ops.LAUNCHES)}
+    finally:
+        mesh.all_reduce_ = real
+    torch.save(out, os.path.join(out_dir, f"step_rank{world.rank}.pt"))
+
+
+def run_cards_steps(seed: int, cli: dict) -> dict:
+    """[12] (e): ``cards_step_rank`` on the four cards; samples/s, the
+    all-reduce's share of the step and each rank's peak memory by remat
+    setting, and the projection of one seed of the 2e recipe against a
+    chip call of CALL_S, its validations and test from (b)'s. Figures
+    only: nothing is gated but finite losses and K2/K3 launched."""
+    import torch
+    from faceformer_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_steps_") as out_dir:
+        mesh.spawn(CARDS, cards_step_rank, seed, out_dir)
+        got = [torch.load(os.path.join(out_dir, f"step_rank{r}.pt")) for r in range(CARDS)]
+    # (b)'s validation: its CLI_SPLIT[1] solids in eval batches of a multiple
+    # of four rows (trainer.py's rounding), a few rows a rank: a batch's
+    # seconds scale to the recipe's batches of 32 (an estimate: 8 rows a
+    # rank there), its seconds a solid to the recipe's solids (a bound)
+    rows = max(CARDS, min(RECIPE_2E["batch"], CLI_SPLIT[1]) // CARDS * CARDS)
+    batch_s = cli["timing"]["valid_seconds"] / -(-CLI_SPLIT[1] // rows)
+    solid_s = cli["timing"]["valid_seconds"] / CLI_SPLIT[1]
+    batches = {k: -(-RECIPE_2E[k] // RECIPE_2E["batch"]) for k in ("valid", "test")}
+    solids = RECIPE_2E["validations"] * RECIPE_2E["valid"] + RECIPE_2E["test"]
+    readings = {}
+    for remat in ("full", "off"):
+        step_ms = float(np.median([np.mean(g[remat]["step_ms"]) for g in got]))
+        share = [sum(g[remat]["allreduce_ms"]) / sum(g[remat]["step_ms"]) for g in got]
+        steps_s = RECIPE_2E["steps"] * step_ms / 1e3
+        eval_s = (RECIPE_2E["validations"] * batches["valid"] + batches["test"]) * batch_s
+        eval_bound_s = solids * solid_s
+        readings[remat] = {
+            "step_ms": [[round(x, 2) for x in g[remat]["step_ms"]] for g in got],
+            "samples_per_s": CARDS * CARDS_ROWS / (step_ms / 1e3),
+            "allreduce_ms": [[round(x, 2) for x in g[remat]["allreduce_ms"]] for g in got],
+            "allreduce_share": [round(x, 4) for x in share],
+            "peak": [g[remat]["peak"] for g in got],
+            "launches": [g[remat]["launches"] for g in got],
+            "projection_s": {"steps": steps_s, "validations_and_test": eval_s,
+                             "validations_and_test_bound": eval_bound_s,
+                             "total": steps_s + eval_s, "call": CALL_S}}
+        print(f"[12] (e) {CARDS} ranks x {CARDS_ROWS} rows, configs/synthetic-big.yml as "
+              f"written, remat {remat}, {CARDS_TIMED} steps after {CARDS_WARM}: step ms a rank "
+              f"{readings[remat]['step_ms']} (median of the ranks' means {step_ms:.2f}); "
+              f"samples/s {readings[remat]['samples_per_s']:.2f}; gradient all-reduce ms "
+              f"{readings[remat]['allreduce_ms']}, share of the step "
+              f"{readings[remat]['allreduce_share']}; peak bytes a rank {readings[remat]['peak']}; "
+              f"launches a rank {[{k: v for k, v in x.items() if v} for x in readings[remat]['launches']]}",
+              flush=True)
+        print(f"[12] (e) projection, one seed of 2e at remat {remat}: {RECIPE_2E['steps']} steps "
+              f"x {step_ms:.2f} ms = {steps_s:.0f} s; {RECIPE_2E['validations']} validations of "
+              f"{batches['valid']} batches and a test of {batches['test']} at (b)'s "
+              f"{batch_s:.2f} s a batch = {eval_s:.0f} s ({solids} solids at (b)'s "
+              f"{solid_s:.3f} s a solid, a bound: {eval_bound_s:.0f} s); {steps_s + eval_s:.0f} "
+              f"s (bound {steps_s + eval_bound_s:.0f} s) against a {CALL_S} s call, before the "
+              f"corpus and the start", flush=True)
+        for g in got:
+            if not all(np.isfinite(g[remat]["losses"])) or not all(
+                    g[remat]["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd")):
+                fail(f"[12] (e) rank {g['rank']} remat {remat}: losses {g[remat]['losses']}, "
+                     f"launches {g[remat]['launches']}")
+    print(f"[12] (e) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return readings
+
+
+def run_cards_model_axis(seed: int) -> dict:
+    """[12] (c): ``dryrun_multichip(4)`` on the four cards (its ok line:
+    mesh (2x2), backend nccl, the flagship at 6+6 layers); then [9] (a)'s
+    fp32 steps on a grid of data 2 x model 2 (``tp_rank``) against one
+    rank, both in torch's deterministic mode: the losses, the first step's
+    gathered gradients and the parameters within [9]'s gates, the planted
+    fault beyond them, and the model-axis collectives a step."""
+    import torch
+    from faceformer_tpu_torch.parallel import mesh
+    from faceformer_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    line = dryrun_multichip(CARDS)
+    dry_s = time.perf_counter() - t0
+    print(f"[12] (c) dryrun_multichip({CARDS}) on the {CARDS} cards: {dry_s:.1f} s", flush=True)
+    if not (line.startswith("dryrun_multichip ok: mesh=(2x2)") and "backend nccl" in line
+            and "6+6 layers" in line):
+        fail(f"[12] (c): {line}")
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp4_") as out_dir:
+        with deterministic():
+            ref = tp_reference(seed, out_dir, full=False)
+        mesh.spawn(CARDS, tp_rank, seed, out_dir, CARDS)
+        got = [torch.load(os.path.join(out_dir, f"tp_rank{r}.pt")) for r in range(CARDS)]
+    want = ref["fp32"]["losses"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], want))
+    fault_err = min(max(abs(a - b) / abs(b) for a, b in zip(g["fault_losses"], want))
+                    for g in got)
+    grad_worst = max(g["grad_err"]["worst"][0][1] for g in got)
+    fault_grad = min(g["fault_grad_err"]["worst"][0][1] for g in got)
+    coll = [g["collectives"] for g in got]
+    share = [round(c["ms"] / g["step_ms"], 3) for c, g in zip(coll, got)]
+    print(f"[12] (c) {CARDS} ranks at model_axis 2 (data 2 x model 2), backends "
+          f"{[g['backend'] for g in got]} on cards {[g['device'] for g in got]}, against 1 rank: "
+          f"fp32 `ours` width, N={TP_ROWS} ({TP_ROWS // 2} rows a data rank), dropout 0, "
+          f"{TP_STEPS} Adam steps, deterministic kernels: losses {got[0]['losses']} vs {want} "
+          f"(largest relative difference {loss_err:.3g}, gate {TP_LOSS_MAX}); the first step's "
+          f"gathered gradients, worst leaves a rank {[g['grad_err']['worst'] for g in got]} "
+          f"(gate {CARDS_GRAD_MAX}), sign flips {[g['grad_err']['sign_flips'] for g in got]}; "
+          f"the rounding control (one rank, the two data ranks' halves summed) "
+          f"{ref['split_control']}; parameter distance {[g['distance'] for g in got]} (gate "
+          f"{TP_UPDATE_MAX}); planted fault (row-parallel bias added on both model ranks): "
+          f"distance {[g['fault_distance'] for g in got]}, losses' relative difference "
+          f"{fault_err:.3g}, gradients' worst leaf {fault_grad:.3g}; "
+          f"the ranks' gathered parameters equal: "
+          f"{all(g['checksum'] == got[0]['checksum'] for g in got)}; K2/K3 (heads, head0) a call "
+          f"{[g['heads'] for g in got]}; launches a rank {[g['launches_a'] for g in got]}",
+          flush=True)
+    print(f"[12] (c) the model-axis collectives a rank over {TP_TIMED} fp32 step(s) (the card "
+          f"synchronized around each) {coll}: {share} of the step's ms "
+          f"{[round(g['step_ms'], 1) for g in got]} (1 rank {ref['fp32']['step_ms']:.1f}); "
+          f"peak bytes {[g['peak'] for g in got]} (1 rank {ref['fp32']['peak']}); "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    for g in got:
+        offset = [[4, 4 * (g["rank"] % 2)]]
+        if g["backend"] != "nccl" or {k: [list(x) for x in v] for k, v in g["heads"].items()} \
+                != {"flash_fwd": offset, "flash_bwd": offset}:
+            fail(f"[12] (c) rank {g['rank']}: backend {g['backend']}, (heads, head0) a call "
+                 f"{g['heads']}")
+        for k in ("flash_fwd", "flash_bwd"):
+            if g["launches_a"][k] <= 0:
+                fail(f"[12] (c) rank {g['rank']}: {k} not launched")
+    if len({g["device"] for g in got}) != CARDS:
+        fail(f"[12] (c): the ranks' cards {[g['device'] for g in got]}")
+    if loss_err > TP_LOSS_MAX or max(g["distance"] for g in got) > TP_UPDATE_MAX:
+        fail("[12] (c): data 2 x model 2 does not train as one rank does")
+    if grad_worst > CARDS_GRAD_MAX:
+        fail("[12] (c): the gathered gradients part from one rank's")
+    if any(g["checksum"] != got[0]["checksum"] or g["losses"] != got[0]["losses"]
+           for g in got):
+        fail("[12] (c): the four ranks disagree")
+    if min(g["fault_distance"] for g in got) <= TP_UPDATE_MAX or fault_grad <= CARDS_GRAD_MAX:
+        fail("[12] (c): the planted fault reads within the gates")
+    return {"dryrun": line, "loss_err": loss_err, "grad_worst": grad_worst,
+            "collectives": coll, "share": share, "launches": [g["launches"] for g in got]}
+
+
+def run_cards_phase(seed: int) -> dict:
+    """Phase 12 (``--cards 4``): (a) the data axis, four nccl ranks against
+    one (``run_dp_ranks``), NCCL_DEBUG=INFO's transport lines read from its
+    files; [5]'s corpus written beside it on the host; (b) ``main ...
+    trainer.num_devices 4`` (``run_dp_cli``) under causal_cache and fused;
+    (c) the model axis (``run_cards_model_axis``); (d) each kernel on cards
+    1-3 while card 0 is current (``tensors_card_readings``); (e) the step at
+    CARDS_ROWS a card (``run_cards_steps``). Returns each part's launches a
+    rank."""
+    t_phase = time.perf_counter()
+    for i, line in enumerate(nvidia_smi(every_card=True)):
+        print(f"[12] card {i}: {line}", flush=True)
+    for query in (("topo", "-m"), ("nvlink", "-s", "-i", "0")):
+        proc = subprocess.run(["nvidia-smi", *query], capture_output=True, text=True,
+                              timeout=60)
+        for line in (proc.stdout + proc.stderr).strip().splitlines()[:12]:
+            print(f"[12] nvidia-smi {' '.join(query)}: {line}", flush=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+        debug = os.path.join(tmp, "nccl_debug")
+        os.makedirs(debug)
+        env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,GRAPH",
+               "NCCL_DEBUG_FILE": os.path.join(debug, "%h.%p.log")}
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            corpus = pool.submit(make_cli_corpus, tmp, "[12] (b)")
+            os.environ.update(env)
+            try:
+                t0 = time.perf_counter()
+                data = run_dp_ranks(seed, ranks=CARDS, backend="nccl", tag="[12] (a)")
+            finally:
+                for key in env:
+                    os.environ.pop(key)
+            syn = corpus.result()
+        link = nccl_transport(debug)
+        print(f"[12] (a) NCCL_DEBUG=INFO: channels by transport {link['via']}; "
+              f"{json.dumps(link['lines'])}; (a) with the corpus beside it "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not link["via"]:
+            fail("[12] (a): NCCL's debug files name no transport")
+        launches["(a)"] = data["launches"]
+        cli = run_dp_cli(syn, None, CARDS, ("causal_cache", "fused"), "nccl", "[12] (b)")
+        launches.update({f"(b) {k}": v for k, v in cli["by_rank"].items()})
+    model_axis = run_cards_model_axis(seed)
+    launches["(c) data 2 x model 2"] = model_axis["launches"]
+    t0 = time.perf_counter()
+    cards = {}
+    for card in range(1, CARDS):
+        cards[card] = tensors_card_readings(card)
+        print(f"[12] (d) K1-K4 on card {card}'s tensors while card 0 is current: "
+              f"{json.dumps(cards[card])}", flush=True)
+        bad = tensors_card_failures(card, cards[card])
+        if bad:
+            fail(f"[12] (d) card {card}: {bad}")
+    print(f"[12] (d) took {time.perf_counter() - t0:.1f} s", flush=True)
+    launches["(d)"] = {f"card {c}": {k: r[k]["launches"] for k in ("K1", "K2", "K3", "K4")}
+                       for c, r in cards.items()}
+    steps = run_cards_steps(seed, cli)
+    launches.update({f"(e) remat {k}": v["launches"] for k, v in steps.items()})
+    print(f"[12] launches a rank: {json.dumps(launches)}", flush=True)
+    print(f"[12] the four-card phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def build_phase() -> None:
+    """[1]: every library built from the checkout (nvcc and g++ at once), with
+    ptxas's register, shared-memory and spill lines, and the wgmma and
+    mma.sync instructions the SASS must hold."""
+    from faceformer_tpu_torch.ops import _build
+
     t0 = time.perf_counter()
     built = _build.build_all(_build.SOURCES + (_build.HOST,))  # nvcc and g++ at once
     print(f"[1] built {built} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4589,6 +5126,65 @@ def main() -> int:
     if len(bwd_tiled) != 2 or not all(bwd_tiled.values()):
         fail("K3's tensor-core key-tiled dq kernel: not both instantiations hold HMMA "
              f"instructions ({bwd_tiled})")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--tie-readings", default="", metavar="SEEDS",
+                        help="comma-separated seeds: print only the readings the flat bf16 "
+                             "serving check's limits are set from (flat_tie_readings)")
+    parser.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                        help=f"{CARDS}: only [1] and [12], the data and model axes over nccl "
+                             f"with a card a rank; needs {CARDS} visible cards")
+    args = parser.parse_args()
+    # Every process this script starts imports torch, and a host that sets
+    # PYTHONDONTWRITEBYTECODE compiles torch's sources again in each one
+    # (~7 s a process on the card machine): keep their bytecode under the
+    # checkout's build/ instead, for this process and every one it starts.
+    pycache = os.path.join(REPO, "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = pycache
+    sys.dont_write_bytecode, sys.pycache_prefix = False, pycache
+
+    import torch
+
+    if args.cards > 1:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < args.cards:
+            print(f"--cards {args.cards} needs {args.cards} visible CUDA cards: {count} visible",
+                  file=sys.stderr)
+            return 1
+    if not torch.cuda.is_available():
+        print("no CUDA card visible: chip_smoke needs one", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.tie_readings:
+        print(f"{torch.cuda.get_device_name(0)}: {nvidia_smi()}", flush=True)
+        flat_tie_readings([int(x) for x in args.tie_readings.split(",")], torch.device("cuda"))
+        return 0
+
+    from faceformer_tpu_torch import ops
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.models.parallel import SurfaceFormerParallel
+    from faceformer_tpu_torch.params import jitter_affine_
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"[1] device {kind} count={torch.cuda.device_count()} nvidia-smi: {smi}", flush=True)
+    build_phase()
+    if args.cards > 1:
+        launches = run_cards_phase(args.seed)
+        print(f"[12] the script took {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"cards": args.cards, "launches_a_rank": launches}), flush=True)
+        print(nvidia_smi(), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
 
     cfg = load_config("configs/ours.yml")
     mc = cfg.model

@@ -332,7 +332,6 @@ class OcclusionTester:
         c = face.frame.origin
         r = face.radius
         planes = []
-        all_pts = []
         for loop in face.loops:
             for edge, _ in loop:
                 if edge.curve.kind != "circle":
@@ -347,27 +346,11 @@ class OcclusionTester:
                 if key not in [k for k, _n, _o in planes] and \
                         nkey not in [k for k, _n, _o in planes]:
                     planes.append((key, fr.z.copy(), fr.origin.copy()))
-            all_pts.append(np.concatenate(_loop_points(face, self.tol)))
-        mean = np.concatenate(all_pts).mean(axis=0)
-        radial = mean - c
-        if float(np.linalg.norm(radial)) < 1e-6 * r:
-            # symmetric band: any azimuthal direction is interior
-            axis = planes[0][1]
-            seed = np.array([1.0, 0.0, 0.0])
-            if abs(float(seed @ axis)) > 0.9:
-                seed = np.array([0.0, 1.0, 0.0])
-            radial = seed - axis * float(seed @ axis)
-        ref = c + r * radial / float(np.linalg.norm(radial))
-        signs = []
-        for _k, n, po in planes:
-            side = float((ref - po) @ n)
-            if abs(side) < self.tol:
-                # the reference point lies on this bounding plane (a cut
-                # through the centre, as a hemisphere's rim): the cap's
-                # pole on the face's side of the plane decides instead
-                pole = c + r * n * _sphere_side(face, c, n, po, self.tol)
-                side = float((pole - po) @ n)
-            signs.append(np.sign(side))
+        # each bounding plane's side is the one the face holds next to its
+        # boundary walk in that plane: a point toward the boundary's mean
+        # lies on the wrong side of a cut below the centre (a cap larger
+        # than a hemisphere) and on the plane of a cut through it
+        signs = [_sphere_side(face, c, n, po, self.tol) for _k, n, po in planes]
         assert all(signs), f"sphere face {face.fid}: a bounding plane without a side"
 
         def test(p, d, slo, shi):
