@@ -206,8 +206,13 @@ result line, and exits 1 with fewer than four visible cards:
      step at 8 rows a card on four ranks, remat full and off: step ms by
      CUDA events, samples/s, the gradient all-reduce's share, each rank's
      peak memory, and a projection of one seed of the 2e recipe against a
-     3,600 s call (figures only). The launches a rank of each part on a
-     JSON line.
+     3,600 s call (figures only); (f) the rehearsal of the flagship
+     recipe's four-card run: ``tools.train_demos run flagship-s0
+     model.remat False trainer.num_devices 4`` on [5]'s corpus for one
+     epoch, then its test of the checkpoint ``best_path`` names, with the
+     STAGE record's four ranks a phase, each rank's K2 and K3 in the fit
+     and K1 in the test, results.json over the test split and the audit
+     files copied. The launches a rank of each part on a JSON line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
@@ -221,6 +226,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import filecmp
 import json
 import os
 import re
@@ -4724,6 +4730,9 @@ TENSORS_CARD_K4 = dict(num_points_per_line=8, num_lines=40, max_face_length=12, 
 CARDS_ROWS, CARDS_WARM, CARDS_TIMED = 8, 2, 5
 RECIPE_2E = {"steps": 9_520, "validations": 10, "valid": 164, "test": 410, "batch": 32}
 CALL_S = 3_600
+# (f): the overrides of the flagship recipe's four-card run (remat off: the
+# step 133-140 ms a card against 178-205 with remat full, PERF.md)
+CARDS_STAGE = ("model.remat", "False")
 NCCL_MARKS = ("NVLS", "NCCL version", "nRanks", "Pattern ")
 
 
@@ -5025,6 +5034,71 @@ def run_cards_model_axis(seed: int) -> dict:
             "collectives": coll, "share": share, "launches": [g["launches"] for g in got]}
 
 
+def run_cards_stage(tmp: str, syn: str, ranks: int = CARDS) -> dict:
+    """[12] (f): the rehearsal of the flagship recipe's run on four cards,
+    ``tools.train_demos run --out <tmp>/out flagship-s0`` with
+    CARDS_STAGE's overrides on [5]'s corpus ``syn`` for one epoch, from
+    ``tmp``. Gates: exit 0; a STAGE record of ``ranks`` ranks a phase whose
+    tested checkpoint is the one ``best_path`` names; results.json the
+    stage's, over the test split; on every rank K3 once a layer a step and
+    K2 in the fit, K1 in the test; the audit files copied byte for byte.
+    Returns each phase's launches a rank."""
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    version = "torch-big-s0"
+    cfg = load_config(CLI_CONFIG, list(CARDS_STAGE))  # the flagship stage's config
+    mc = cfg.model
+    log = os.path.join(tmp, "logs", cfg.trainer.name, version)
+    out = os.path.join(tmp, "out")
+    _, stages = run_demos(tmp, f"train_demos run flagship-s0 at {ranks} ranks (1 epoch)", "run",
+                          "--out", out, "flagship-s0", *CARDS_STAGE, "trainer.num_devices",
+                          str(ranks), "root_dir", syn, "trainer.max_epochs", "1",
+                          "trainer.checkpoint_period", "1", tag="[12] (f)")
+    record = stages.get("flagship-s0")
+    if record is None or record["version"] != version:
+        fail(f"[12] (f): no STAGE record of flagship-s0 as {version}")
+    best = CheckpointManager(os.path.join(log, "checkpoints")).best_path()
+    results = None
+    if os.path.isfile(os.path.join(log, "results.json")):
+        with open(os.path.join(log, "results.json")) as f:
+            results = json.load(f)
+    steps = CLI_SPLIT[0] // cfg.batch_size_train
+    per_step = mc.num_encoder_layers + 2 * mc.num_decoder_layers
+    by_rank = {phase: record[phase]["by_rank"] for phase in ("fit", "test")}
+    print(f"[12] (f) flagship-s0 at {ranks} ranks, {' '.join(CARDS_STAGE)}: fit "
+          f"{record['fit']['seconds']:.1f} s, test {record['test']['seconds']:.1f} s; tested "
+          f"{os.path.basename(record['tested_ckpt'])} (best_path {os.path.basename(best)}); "
+          f"{record['results']}; by rank {json.dumps(by_rank)}", flush=True)
+    if record["tested_ckpt"] != best:
+        fail(f"[12] (f) tested {record['tested_ckpt']}, best_path {best}")
+    if results != record["results"] or record["results"]["num_samples"] != CLI_SPLIT[2]:
+        fail(f"[12] (f): results.json {results}, the stage's {record['results']}")
+    for phase in ("fit", "test"):
+        if record[phase]["ranks"] != ranks or [r["rank"] for r in by_rank[phase]] != list(
+                range(ranks)):
+            fail(f"[12] (f) {phase}: {record[phase]['ranks']} ranks recorded, {ranks} run")
+    for fit, test in zip(by_rank["fit"], by_rank["test"]):
+        if (fit["launches"].get("flash_bwd") != steps * per_step
+                or fit["launches"].get("flash_fwd", 0) < steps * per_step
+                or test["launches"].get("pointer_argmax", 0) <= 0):
+            fail(f"[12] (f) rank {fit['rank']}: launches fit {fit['launches']}, test "
+                 f"{test['launches']}")
+    copied = sorted(os.path.relpath(os.path.join(d, f), os.path.join(out, version))
+                    for d, _, files in os.walk(os.path.join(out, version)) for f in files)
+    metas = sorted(os.path.join("checkpoints", f) for f in os.listdir(os.path.join(
+        log, "checkpoints")) if f.endswith(".meta.json"))
+    want = sorted(["metrics.jsonl", "results.json", os.path.join("checkpoints", "index.json"),
+                   *metas])
+    if copied != want or not all(filecmp.cmp(os.path.join(out, version, rel),
+                                             os.path.join(log, rel), shallow=False)
+                                 for rel in copied):
+        fail(f"[12] (f): audit files copied {copied}, expected {want} byte for byte")
+    print(f"[12] (f) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {phase: [r["launches"] for r in by_rank[phase]] for phase in ("fit", "test")}
+
+
 def run_cards_phase(seed: int) -> dict:
     """Phase 12 (``--cards 4``): (a) the data axis, four nccl ranks against
     one (``run_dp_ranks``), NCCL_DEBUG=INFO's transport lines read from its
@@ -5032,8 +5106,8 @@ def run_cards_phase(seed: int) -> dict:
     trainer.num_devices 4`` (``run_dp_cli``) under causal_cache and fused;
     (c) the model axis (``run_cards_model_axis``); (d) each kernel on cards
     1-3 while card 0 is current (``tensors_card_readings``); (e) the step at
-    CARDS_ROWS a card (``run_cards_steps``). Returns each part's launches a
-    rank."""
+    CARDS_ROWS a card (``run_cards_steps``); (f) the flagship stage at one
+    epoch (``run_cards_stage``). Returns each part's launches a rank."""
     t_phase = time.perf_counter()
     for i, line in enumerate(nvidia_smi(every_card=True)):
         print(f"[12] card {i}: {line}", flush=True)
@@ -5043,30 +5117,31 @@ def run_cards_phase(seed: int) -> dict:
         for line in (proc.stdout + proc.stderr).strip().splitlines()[:12]:
             print(f"[12] nvidia-smi {' '.join(query)}: {line}", flush=True)
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
-        debug = os.path.join(tmp, "nccl_debug")
-        os.makedirs(debug)
-        env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,GRAPH",
-               "NCCL_DEBUG_FILE": os.path.join(debug, "%h.%p.log")}
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            corpus = pool.submit(make_cli_corpus, tmp, "[12] (b)")
-            os.environ.update(env)
-            try:
-                t0 = time.perf_counter()
-                data = run_dp_ranks(seed, ranks=CARDS, backend="nccl", tag="[12] (a)")
-            finally:
-                for key in env:
-                    os.environ.pop(key)
-            syn = corpus.result()
-        link = nccl_transport(debug)
-        print(f"[12] (a) NCCL_DEBUG=INFO: channels by transport {link['via']}; "
-              f"{json.dumps(link['lines'])}; (a) with the corpus beside it "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        if not link["via"]:
-            fail("[12] (a): NCCL's debug files name no transport")
-        launches["(a)"] = data["launches"]
-        cli = run_dp_cli(syn, None, CARDS, ("causal_cache", "fused"), "nccl", "[12] (b)")
-        launches.update({f"(b) {k}": v for k, v in cli["by_rank"].items()})
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cards_")  # [5]'s corpus, (a)-(f)
+    tmp = tmp_dir.name
+    debug = os.path.join(tmp, "nccl_debug")
+    os.makedirs(debug)
+    env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,GRAPH",
+           "NCCL_DEBUG_FILE": os.path.join(debug, "%h.%p.log")}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        corpus = pool.submit(make_cli_corpus, tmp, "[12] (b)")
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            data = run_dp_ranks(seed, ranks=CARDS, backend="nccl", tag="[12] (a)")
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        syn = corpus.result()
+    link = nccl_transport(debug)
+    print(f"[12] (a) NCCL_DEBUG=INFO: channels by transport {link['via']}; "
+          f"{json.dumps(link['lines'])}; (a) with the corpus beside it "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not link["via"]:
+        fail("[12] (a): NCCL's debug files name no transport")
+    launches["(a)"] = data["launches"]
+    cli = run_dp_cli(syn, None, CARDS, ("causal_cache", "fused"), "nccl", "[12] (b)")
+    launches.update({f"(b) {k}": v for k, v in cli["by_rank"].items()})
     model_axis = run_cards_model_axis(seed)
     launches["(c) data 2 x model 2"] = model_axis["launches"]
     t0 = time.perf_counter()
@@ -5083,6 +5158,8 @@ def run_cards_phase(seed: int) -> dict:
                        for c, r in cards.items()}
     steps = run_cards_steps(seed, cli)
     launches.update({f"(e) remat {k}": v["launches"] for k, v in steps.items()})
+    launches.update({f"(f) {k}": v for k, v in run_cards_stage(tmp, syn).items()})
+    tmp_dir.cleanup()
     print(f"[12] launches a rank: {json.dumps(launches)}", flush=True)
     print(f"[12] the four-card phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches

@@ -18,7 +18,9 @@ version ``torch-<version>-s<seed>``, and runs in a process of its own:
 it fits, then tests the checkpoint ``CheckpointManager.best_path`` names
 (top-1 by ``valid_precision``, else ``last``), prints that path and one
 ``STAGE {...}`` JSON line (the tested checkpoint, ``results.json``, and
-each phase's seconds, kernel launches and peak device memory). A stage
+each phase's seconds, rank count and each rank's kernel launches and peak
+device memory, which every process of the phase writes under the log's
+``rank_stats/``, with the launches summed over the ranks). A stage
 whose fit fails is not tested, so no stale checkpoint writes
 ``results.json``. ``--jobs N`` runs N stages at a time, each its own
 process on the same card; the command waits for every stage and exits
@@ -98,35 +100,48 @@ def best_ckpt(log_dir: str) -> str:
     return path
 
 
-def _phase(fn) -> Dict:
-    """Run ``fn``; its seconds, kernel launches and peak device memory."""
-    import torch
+def _phase(argv: Sequence[str], stats_dir: str, ranks: int) -> Dict:
+    """``main.main(argv)``; its seconds, and each of its ``ranks`` processes'
+    kernel launches and peak device memory (``by_rank``, from the file each
+    wrote under ``stats_dir``: ranks are processes of their own), with the
+    launches summed over the ranks and the largest peak."""
+    from faceformer_tpu_torch import main
 
-    from faceformer_tpu_torch import ops
-
-    ops.reset_launches()
-    if torch.cuda.is_initialized():
-        torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(stats_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    fn()
+    main.main(argv, rank_stats=stats_dir)
     seconds = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
-    return {"seconds": seconds, "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
-            "max_memory_allocated": peak}
+    by_rank = []
+    for r in range(ranks):
+        path = os.path.join(stats_dir, f"rank{r}.json")
+        if not os.path.isfile(path):
+            raise RuntimeError(f"rank {r} of {ranks} wrote no counts to {stats_dir}")
+        with open(path) as f:
+            by_rank.append(json.load(f))
+    launches: Dict[str, int] = {}
+    for stats in by_rank:
+        for k, v in stats["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"seconds": seconds, "ranks": ranks, "launches": launches,
+            "max_memory_allocated": max(s["max_memory_allocated"] for s in by_rank),
+            "by_rank": by_rank}
 
 
 def run_stage(stage: str, device: str, overrides: Sequence[str]) -> Dict:
     """One stage in this process: fit, then test the best checkpoint. A
     failed fit raises before any test."""
-    from faceformer_tpu_torch import main
+    from faceformer_tpu_torch.config import load_config
+    from faceformer_tpu_torch.parallel import mesh
 
     config, opts, log_dir = stage_options(stage, overrides)
     _, version, seed = stage_spec(stage)
+    ranks = mesh.local_ranks(load_config(config, opts).trainer.num_devices, device)
     flags = ["--config-file", config, "--device", device]
-    fit = _phase(lambda: main.main([*flags, *opts]))
+    stats = os.path.join(log_dir, "rank_stats")
+    fit = _phase([*flags, *opts], os.path.join(stats, "fit"), ranks)
     ckpt = best_ckpt(log_dir)
     print(f"{stage}: testing {ckpt}", flush=True)
-    test = _phase(lambda: main.main([*flags, "--test_ckpt", ckpt, *opts]))
+    test = _phase([*flags, "--test_ckpt", ckpt, *opts], os.path.join(stats, "test"), ranks)
     with open(os.path.join(log_dir, "results.json")) as f:
         results = json.load(f)
     record = {"stage": stage, "config": os.path.relpath(config, REPO),

@@ -3,7 +3,8 @@ against the root tools/train_demos.sh, tools/aggregate_results.py and the
 JAX package's data path: the stage table, a two-stage run on the CPU at a
 tiny width (fit, best checkpoint, test, audit files), a stage whose fit
 fails, the summary, each trained recipe's corpus and training batches, and
-the committed card runs of the flat, direction-token and coedge recipes."""
+the committed card runs of the flat, direction-token and coedge recipes;
+and a stage over two gloo ranks, whose STAGE line holds each rank's counts."""
 
 import json
 import os
@@ -15,8 +16,8 @@ import numpy as np
 import pytest
 
 from faceformer_tpu.config import load_config as jax_load_config
+from faceformer_tpu.data import dataset as jax_dataset
 from faceformer_tpu.data.batching import iter_batches as jax_iter_batches
-from faceformer_tpu.data.dataset import ABCDataset as JaxABCDataset
 from faceformer_tpu.tools import synthetic_data as jax_synthetic_data
 from faceformer_tpu_torch.config import load_config
 from faceformer_tpu_torch.parallel import mesh
@@ -32,6 +33,9 @@ FLAT_GEN = ["--profile", "rich", "--combine_coedge", "--max_edges", "110", "--ma
             "42", "--max_label_len", "258", "--seed", "2"]
 # each trained recipe's config and its header's corpus flags, at a cut --num
 RECIPES = {
+    "flagship": (os.path.join(REPO, "configs", "synthetic-big.yml"),
+                 ["--profile", "rich", "--max_edges", "216", "--max_faces", "42",
+                  "--max_face_len", "36", "--seed", "1"]),
     "flat": (FLAT_CONFIG, FLAT_GEN),
     "dirtok": (os.path.join(REPO, "configs", "synthetic-dirtok-big.yml"),
                ["--profile", "rich", "--direction_token", "--max_edges", "110", "--max_faces",
@@ -54,6 +58,20 @@ TINY = ["model.num_points_per_line", "8", "model.num_lines", "40",
 STAGES = ("flat-s0", "dirtok-s0", "flat-s1")
 GOOD = ("torch-seq2seq-big-s0", "torch-seq2seq-big-s1")
 AUDIT = ("metrics.jsonl", "results.json", os.path.join("checkpoints", "index.json"))
+
+
+def stage_env(tmp):
+    """The environment of a ``train_demos`` subprocess: the repository on
+    PYTHONPATH, one thread a process, and TensorFlow left out (TensorBoard
+    writes its event files without it, which would take each writing
+    process seconds to import)."""
+    no_tf = tmp / "no_tf" / "tensorflow"
+    no_tf.mkdir(parents=True, exist_ok=True)
+    (no_tf / "__init__.py").write_text("raise ImportError\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, str(no_tf.parent), env.get("PYTHONPATH")) if p)
+    return env
 
 
 def read_lines(path):
@@ -189,6 +207,55 @@ def test_failed_fit_is_not_tested_and_fails_the_run(demo_run):
     assert set(stage_records(stdout)) == {"flat-s0", "flat-s1"}
 
 
+def test_stage_over_two_ranks_records_each_ranks_counts(tmp_path):
+    """A stage over two gloo ranks: each phase's record holds the rank count
+    and one entry a rank, read from the file that rank wrote, never the
+    stage process's own (empty) counts."""
+    synthetic_data.main(["--root", str(tmp_path / "data" / "synthetic-flat-big"), *TINY_GEN])
+    proc = subprocess.run(
+        [sys.executable, "-m", "faceformer_tpu_torch.tools.train_demos", "run", "--device",
+         "cpu", "flat-s0", *TINY, "trainer.max_epochs", "1", "trainer.num_devices", "2"],
+        cwd=tmp_path, env=stage_env(tmp_path), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    record = stage_records(proc.stdout)["flat-s0"]
+    stats = tmp_path / "logs" / "SurfaceFormer" / GOOD[0] / "rank_stats"
+    for phase in ("fit", "test"):
+        got = record[phase]
+        assert got["ranks"] == 2 and [r["rank"] for r in got["by_rank"]] == [0, 1]
+        for r in got["by_rank"]:
+            assert json.loads((stats / phase / f"rank{r['rank']}.json").read_text()) == r
+            # the CPU runs the plain versions: no launch, no device memory
+            assert r["launches"] == {} and r["max_memory_allocated"] == 0
+        assert got["launches"] == {} and got["max_memory_allocated"] == 0
+    assert record["tested_ckpt"] == CheckpointManager(
+        str(stats.parent / "checkpoints")).best_path()
+    assert "rank 1 of 2" in proc.stdout
+
+
+def test_phase_sums_the_ranks_files(tmp_path, monkeypatch):
+    """``_phase`` reads one file a rank: launches summed, the largest peak;
+    a rank that wrote none fails the phase."""
+    from faceformer_tpu_torch import main
+
+    written = [{"rank": 0, "launches": {"flash_fwd": 5, "flash_bwd": 2}, "max_memory_allocated": 7},
+               {"rank": 1, "launches": {"flash_fwd": 3, "pointer_argmax": 1},
+                "max_memory_allocated": 9}]
+
+    def fake_main(argv, rank_stats):
+        os.makedirs(rank_stats)
+        for stats in written[:int(argv[0])]:
+            (tmp_path / "stats" / f"rank{stats['rank']}.json").write_text(json.dumps(stats))
+
+    monkeypatch.setattr(main, "main", fake_main)
+    got = train_demos._phase(["2"], str(tmp_path / "stats"), 2)
+    assert got["ranks"] == 2 and got["by_rank"] == written
+    assert got["launches"] == {"flash_fwd": 8, "flash_bwd": 2, "pointer_argmax": 1}
+    assert got["max_memory_allocated"] == 9
+    # the directory is emptied first, so the earlier run's rank 1 does not count
+    with pytest.raises(RuntimeError, match="rank 1 of 2 wrote no counts"):
+        train_demos._phase(["1"], str(tmp_path / "stats"), 2)
+
+
 # -- (iv) the summary ------------------------------------------------------------------
 
 
@@ -256,20 +323,35 @@ def test_recipe_batches_equal_jax(recipe_corpora):
     harness = Harness(cfg, device="cpu")
     ds = harness.dataset("train")
     jcfg = jax_load_config(config, ["root_dir", jax_root])
-    jds = JaxABCDataset(jcfg.root_dir, list(jcfg.datasets_train), jcfg.model)
+    # the JAX dataset of the config's dataset_class (ABCDataset_Parallel is an alias there)
+    jds = getattr(jax_dataset, jcfg.dataset_class)(jcfg.root_dir, list(jcfg.datasets_train),
+                                                   jcfg.model)
+    assert type(ds).__name__ == type(jds).__name__
     train = len(read_lines(os.path.join(port, "train.txt")))
     assert len(ds) == len(jds) == train
     for epoch in (0, 1):
-        got = [(len(b["name"]), list(b["name"]))
-               for b in mesh.shard_batch(ds, cfg.batch_size_train, harness.world, shuffle=True,
-                                         drop_last=True, seed=cfg.trainer.seed, epoch=epoch)]
-        want = [(len(b["name"]), [os.path.basename(n) for n in b["name"]])
+        kwargs = dict(shuffle=True, drop_last=True, seed=cfg.trainer.seed, epoch=epoch)
+        got = [[os.path.basename(n) for n in b["name"]]
+               for b in mesh.shard_batch(ds, cfg.batch_size_train, harness.world, **kwargs)]
+        want = [[os.path.basename(n) for n in b["name"]]
                 for b in jax_iter_batches(jds, jcfg.batch_size_train, shuffle=True,
                                           drop_last=True, seed=jcfg.trainer.seed, epoch=epoch)]
-        got = [(n, [os.path.basename(x) for x in names]) for n, names in got]
         assert got == want
         # the recipe's rule: train // 32 full batches an epoch (238 at 8,192 solids)
-        assert [n for n, _ in got] == [32] * (train // 32)
+        assert [len(names) for names in got] == [32] * (train // 32)
+        if cfg.model_class != "SurfaceFormer_Parallel":
+            continue
+        # the flagship's run: four data ranks of 8 rows, whose k-th batches
+        # interleave (rank r holds rows r, r + 4, ...) into JAX's k-th batch
+        stripes = [[[os.path.basename(n) for n in b["name"]]
+                    for b in mesh.shard_batch(ds, cfg.batch_size_train,
+                                              mesh.World(r, 4, r, 4, harness.world.device),
+                                              **kwargs)]
+                   for r in range(4)]
+        assert [len(s) for s in stripes] == [len(want)] * 4
+        assert all(len(names) == 8 for s in stripes for names in s)
+        for k, names in enumerate(want):
+            assert [stripes[j % 4][k][j // 4] for j in range(32)] == names
 
 
 # -- the committed card runs of the trained recipes ------------------------------------------
