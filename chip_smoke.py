@@ -32,15 +32,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
      faces): every gradient through the kernels against the plain versions
      in fp32 at N=2; Adam steps in bf16 without and with dropout 0.2, the
      NaN-loss skip, scheduled sampling and remat, with the launch counts
-     each configuration implies; samples/s, the step split into forward,
-     backward and optimizer, peak memory, and one step under
-     torch.profiler;
+     each configuration implies; the NaN step and a step with dropout
+     under torch.cuda.set_sync_debug_mode("error"), where a call inside
+     ``train_step`` that waits for the card fails the phase (the skip runs
+     on the card); samples/s, the step split into forward, backward and
+     optimizer, peak memory, and one step under torch.profiler, then three
+     steps back to back at N=8 (the flagship recipe's rows a card) under
+     it: the card's busy ms a step, which the fit's step span does not
+     give;
   4. per-kernel timing at the main paths' shapes (K2 at each of its five:
      the serving encoder, the reference engine's decoder, and the three
      training calls): kernel, plain version, one-call library yardstick, and
      the card's lower bound, K3 there held once more to its bf16 gates;
      and K4's GEMM phase alone (the 49 products of
      one step, each kind held against its plain version) beside addmm;
+     each timing's spin kernel is checked to outlast the host's queueing
+     of the timed calls, and lengthened until it does;
   5. the command line at the `ours` width of configs/synthetic-big.yml
      (batch 32, bf16, remat, causal_cache validation), each run in a
      subprocess from a temporary directory: ``tools.synthetic_data`` writes
@@ -84,7 +91,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
      plain versions in fp32 at N=2, then 5 timed bf16 steps at N=32 after
      2 warm-ups: samples/s, the step's split, peak memory, launches, K2's
      and K3's tensor-core key-tiled kernels in every decoder
-     self-attention, one profiled step); serving with early stop off
+     self-attention, a step under torch.cuda.set_sync_debug_mode("error"),
+     one profiled step); serving with early stop off
      (causal_cache timed at N=32 with a profiled decode, reference at N=4;
      over the first FLAT_CHECK_STEPS steps each engine's fp32 grid through
      the kernels equal to the plain versions', bf16 grids parting only at
@@ -204,15 +212,21 @@ result line, and exits 1 with fewer than four visible cards:
      (tests/test_torch_gpu.py's check): launched there, equal to their
      plain versions there, card 0 current afterwards; (e) the training
      step at 8 rows a card on four ranks, remat full and off: step ms by
-     CUDA events, samples/s, the gradient all-reduce's share, each rank's
-     peak memory, and a projection of one seed of the 2e recipe against a
-     3,600 s call (figures only); (f) the rehearsal of the flagship
+     CUDA events with the steps queued back to back, samples/s, the
+     gradient all-reduce's share, each rank's peak memory, and a
+     projection of one seed of the 2e recipe against a 3,600 s call
+     (figures only), then one more step a rank under
+     torch.cuda.set_sync_debug_mode("error") (a call inside it that waits
+     for the card fails the phase); (f) the rehearsal of the flagship
      recipe's four-card run: ``tools.train_demos run flagship-s0
      model.remat False trainer.num_devices 4`` on [5]'s corpus for one
      epoch, then its test of the checkpoint ``best_path`` names, with the
      STAGE record's four ranks a phase, each rank's K2 and K3 in the fit
      and K1 in the test, results.json over the test split and the audit
-     files copied. The launches a rank of each part on a JSON line.
+     files copied, and the fit's epoch split as ms a step (the host's in
+     the batches and in queueing the steps, the steps' span on the card's
+     stream).
+     The launches a rank of each part on a JSON line.
 
 Exits non-zero without printing a result when no CUDA card is visible.
 Imports nothing of JAX or of the JAX package.
@@ -305,26 +319,43 @@ def nvidia_smi(every_card: bool = False):
     return lines if every_card else lines[0]
 
 
-SPIN_CYCLES = 35_000_000  # ~20 ms of the card's clock
+SPIN_CYCLES, SPIN_MS = 35_000_000, 20.0  # ~20 ms of the card's clock
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device milliseconds per call of fn. A spin kernel holds the card
     while the host queues the calls, so the events time the card's work
     back to back and not the host's launch overhead (which exceeds a small
-    call's kernel)."""
+    call's kernel). The spin must outlast the queueing: where the start
+    event has already fired when the last call is queued, the card waited
+    for the host, and the reading is taken again with a spin twice as long
+    (printed). Where the queueing grows with the spin, the calls wait for
+    the card themselves (a plain version's host reads), the card never
+    waits for the host, and the reading stands."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    spin, queued = SPIN_CYCLES, None
+    for _ in range(6):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        grew = queued is not None and queued_ms - queued > SPIN_MS * spin / SPIN_CYCLES / 4
+        if covered or grew:
+            break
+        print(f"time_ms: the spin of {spin} cycles ended before the host had queued {iters} "
+              f"calls ({queued_ms:.2f} ms of queueing, {start.elapsed_time(end) / iters:.4f} ms "
+              f"a call read); again with {2 * spin}", flush=True)
+        spin, queued = 2 * spin, queued_ms
     return start.elapsed_time(end) / iters
 
 
@@ -1306,9 +1337,36 @@ def expect_launches(what, fwd, bwd, tag="[3]"):
         fail(f"train {what}: flash launches {got}, the configuration implies {(fwd, bwd)}")
 
 
+def sync_free(fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"), where a call
+    that waits for the card raises: (what fn returned, None), or (None, the
+    error's text)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(), None
+    except RuntimeError as err:
+        return None, str(err).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def check_sync_free(tag: str, what: str, fn):
+    """``sync_free(fn)`` for training steps, printed; fails the phase on a
+    call inside them that waited for the card. Returns what fn returned."""
+    out, err = sync_free(fn)
+    print(f"{tag} {what} under torch.cuda.set_sync_debug_mode('error'): "
+          f"{'no call waited for the card' if err is None else err}", flush=True)
+    if err is not None:
+        fail(f"{tag} {what}: a call waited for the card: {err}")
+    return out
+
+
 def timed_step(model, optimizer, batch, generator, cfg):
     """The calls of ``train_step`` with CUDA events between them: ms of
-    (forward + loss, backward, the finite check and Adam)."""
+    (forward + loss, backward, the skip flag and Adam)."""
     import torch
     from faceformer_tpu_torch.train.loss import pointer_cross_entropy
 
@@ -1320,8 +1378,9 @@ def timed_step(model, optimizer, batch, generator, cfg):
     ev[1].record()
     loss.backward()
     ev[2].record()
-    if bool(torch.isfinite(loss)):
-        optimizer.step()
+    optimizer.found_inf = (~torch.isfinite(loss.detach())).float()
+    optimizer.step()
+    del optimizer.found_inf
     ev[3].record()
     torch.cuda.synchronize()
     return tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3))
@@ -1417,7 +1476,10 @@ def run_training(cfg, rng, seed, samples, dev):
     bad = dict(batch)
     bad["input"] = batch["input"].clone()
     bad["input"][0, 0, 0, 0] = float("nan")
-    loss, _ = train_step(model, optimizer, bad, dgen, tcfg)
+    # the skip happens on the card: neither this step nor one that steps
+    # waits for it
+    loss, _ = check_sync_free("[3]", "train_step, the NaN step",
+                              lambda: train_step(model, optimizer, bad, dgen, tcfg))
     after = optimizer.state_dict()["state"]
     same = (all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
             and after.keys() == state.keys()
@@ -1427,6 +1489,9 @@ def run_training(cfg, rng, seed, samples, dev):
           f"(moments, step counts) bitwise unchanged: {same}", flush=True)
     if bool(torch.isfinite(loss)) or not same:
         fail("train: the NaN step did not leave parameters and Adam state unchanged")
+
+    check_sync_free("[3]", f"train_step, bf16 dropout {mc.dropout}",
+                    lambda: train_step(model, optimizer, batch, dgen, tcfg))
 
     # scheduled sampling: a dropout-free first pass re-runs the decoder only
     ss = dataclasses.replace(tcfg, trainer=dataclasses.replace(tcfg.trainer,
@@ -1465,6 +1530,12 @@ def run_training(cfg, rng, seed, samples, dev):
     rates = {"remat off": measure("remat off")}
     profile_call("train step (remat off)",
                  lambda: train_step(model, optimizer, batch, dgen, tcfg), top=12)
+    # the flagship recipe's rows a card: the card's busy time a step (the
+    # fit's span counts the card's waits for the host as well)
+    rows8 = {k: v[:8] for k, v in batch.items()}
+    train_step(model, optimizer, rows8, dgen, tcfg)
+    profile_call("3 train steps back to back at N=8 (remat off)",
+                 lambda: [train_step(model, optimizer, rows8, dgen, tcfg) for _ in range(3)])
     model.cfg = dataclasses.replace(mc, remat=True)
     ops.reset_launches()
     loss, _ = train_step(model, optimizer, batch, dgen, tcfg)
@@ -1731,6 +1802,20 @@ def run_oracle_lift(tmp, syn, pool, cores):
     return numbers
 
 
+#: an epoch record's seconds split (train/trainer.py::Harness.fit)
+FIT_SPLIT = ("train_host_batch_seconds", "train_host_dispatch_seconds",
+             "train_step_span_seconds")
+
+
+def fit_split_ms(record: dict, steps: int) -> dict:
+    """An epoch record's split as ms a step: the host's in the batch
+    iterator and upload, in queueing the steps, and the steps' span on the
+    card's stream (CUDA events; the card's idle gaps while the host queues
+    included), beside the epoch's wall a step."""
+    keys = ("epoch_train_seconds",) + FIT_SPLIT
+    return {k.replace("_seconds", "_ms"): record[k] * 1e3 / steps for k in keys}
+
+
 def read_jsonl(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
@@ -1989,11 +2074,10 @@ def run_cli_phase(train_rates, syn):
         t2 = timing[1]
         numbers = {
             "fit_samples_per_s_epoch2": t2["train_samples_per_s"],
-            "fit_train_step_ms_epoch2": t2["train_step_seconds"] * 1e3 / steps_per_epoch,
+            "fit_split_ms_a_step_epoch2": fit_split_ms(t2, steps_per_epoch),
             "train_step_samples_per_s_remat_full": train_rates["remat full"],
             "epoch_seconds": [r["epoch_train_seconds"] for r in timing],
-            "epoch_seconds_outside_train_step": [r["epoch_train_seconds"]
-                                                 - r["train_step_seconds"] for r in timing],
+            **{key: [r[key] for r in timing] for key in FIT_SPLIT},
             "validate_seconds": [r["valid_seconds"] for r in timing],
             "validate_decode_seconds": [r["valid_decode_seconds"] for r in timing],
             "validate_metrics_seconds": [r["valid_metrics_seconds"] for r in timing],
@@ -2353,6 +2437,8 @@ def run_flat_training(model, cfg, batch, seed):
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
         fail("flat train bf16: a loss is not finite")
+    check_sync_free("[6]", f"flat train_step, bf16 dropout {mc.dropout}",
+                    lambda: train_step(model, optimizer, batch, dgen, tcfg))
     split = np.mean([timed_step(model, optimizer, batch, dgen, tcfg) for _ in range(3)], axis=0)
     n = batch["label"].shape[0]
     rate = n / step_s
@@ -2861,10 +2947,8 @@ def run_flat_cli(host: dict):
         t = timing[0]
         numbers = {
             "fit_samples_per_s": t["train_samples_per_s"],
-            "fit_train_step_ms": t["train_step_seconds"] * 1e3 / steps,
+            "fit_split_ms_a_step": fit_split_ms(t, steps),
             "epoch_seconds": t["epoch_train_seconds"],
-            "epoch_seconds_outside_train_step": t["epoch_train_seconds"]
-            - t["train_step_seconds"],
             "validate_decode_seconds": t["valid_decode_seconds"],
             "validate_metrics_seconds": t["valid_metrics_seconds"],
             "test_avg_time_per_sample": results["avg_time_per_sample"],
@@ -4878,17 +4962,23 @@ def cards_step_rank(seed: int, out_dir: str) -> None:
             ops.reset_launches()
             reduces.clear()
             steps, losses = [], []
-            for _ in range(CARDS_TIMED):
+            for _ in range(CARDS_TIMED):  # queued one after another, as the fit queues them
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-                losses.append(float(train_step(model, optimizer, batch, dropout, cfg,
-                                               world=world)[0]))
+                losses.append(train_step(model, optimizer, batch, dropout, cfg,
+                                         world=world)[0])
                 end.record()
                 steps.append((start, end))
             torch.cuda.synchronize()
             out[remat] = {"step_ms": event_ms(steps), "allreduce_ms": event_ms(reduces),
-                          "peak": torch.cuda.max_memory_allocated(), "losses": losses,
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "losses": [float(x) for x in losses],
                           "launches": dict(ops.LAUNCHES)}
+            # one more step under the sync check, on every rank: nothing in
+            # it, the all-reduces over NCCL included, waits for the card
+            _, out[remat]["sync_error"] = sync_free(
+                lambda: train_step(model, optimizer, batch, dropout, cfg, world=world))
+            torch.cuda.synchronize()
     finally:
         mesh.all_reduce_ = real
     torch.save(out, os.path.join(out_dir, f"step_rank{world.rank}.pt"))
@@ -4948,6 +5038,12 @@ def run_cards_steps(seed: int, cli: dict) -> dict:
               f"{solid_s:.3f} s a solid, a bound: {eval_bound_s:.0f} s); {steps_s + eval_s:.0f} "
               f"s (bound {steps_s + eval_bound_s:.0f} s) against a {CALL_S} s call, before the "
               f"corpus and the start", flush=True)
+        errors = [g[remat]["sync_error"] for g in got]
+        print(f"[12] (e) remat {remat}: one more step a rank under "
+              f"torch.cuda.set_sync_debug_mode('error'): "
+              f"{'no call waited for the card' if not any(errors) else errors}", flush=True)
+        if any(errors):
+            fail(f"[12] (e) remat {remat}: a call in train_step waited for the card: {errors}")
         for g in got:
             if not all(np.isfinite(g[remat]["losses"])) or not all(
                     g[remat]["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd")):
@@ -5071,6 +5167,8 @@ def run_cards_stage(tmp: str, syn: str, ranks: int = CARDS) -> dict:
           f"{record['fit']['seconds']:.1f} s, test {record['test']['seconds']:.1f} s; tested "
           f"{os.path.basename(record['tested_ckpt'])} (best_path {os.path.basename(best)}); "
           f"{record['results']}; by rank {json.dumps(by_rank)}", flush=True)
+    print(f"[12] (f) the fit's epoch, ms a step over its {steps} steps (the writer's): "
+          f"{json.dumps(record['fit']['epochs'][0]['ms_a_step'])}", flush=True)
     if record["tested_ckpt"] != best:
         fail(f"[12] (f) tested {record['tested_ckpt']}, best_path {best}")
     if results != record["results"] or record["results"]["num_samples"] != CLI_SPLIT[2]:

@@ -20,7 +20,9 @@ it fits, then tests the checkpoint ``CheckpointManager.best_path`` names
 ``STAGE {...}`` JSON line (the tested checkpoint, ``results.json``, and
 each phase's seconds, rank count and each rank's kernel launches and peak
 device memory, which every process of the phase writes under the log's
-``rank_stats/``, with the launches summed over the ranks). A stage
+``rank_stats/``, with the launches summed over the ranks; and the fit's
+epochs, each with its seconds split as ``metrics.jsonl`` records it:
+``fit_epochs``). A stage
 whose fit fails is not tested, so no stale checkpoint writes
 ``results.json``. ``--jobs N`` runs N stages at a time, each its own
 process on the same card; the command waits for every stage and exits
@@ -127,6 +129,33 @@ def _phase(argv: Sequence[str], stats_dir: str, ranks: int) -> Dict:
             "by_rank": by_rank}
 
 
+#: an epoch record's seconds (train/trainer.py::Harness.fit)
+EPOCH_SECONDS = ("epoch_train_seconds", "train_host_batch_seconds",
+                 "train_host_dispatch_seconds", "train_step_span_seconds")
+
+
+def fit_epochs(log_dir: str) -> List[Dict]:
+    """The last fit's epochs from the version's ``metrics.jsonl``: each
+    epoch's steps, its EPOCH_SECONDS (the wall; the host's seconds in the
+    batches and in queueing the steps; the steps' span on the card's
+    stream, by CUDA events) and the same as ms a step."""
+    epochs: List[Dict] = []
+    last = 0
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        for line in f:
+            record = json.loads(line)
+            if "epoch_train_seconds" not in record:
+                continue
+            if record["step"] <= last:  # an earlier run's records end here
+                epochs, last = [], 0
+            steps, last = record["step"] - last, record["step"]
+            seconds = {k: record[k] for k in EPOCH_SECONDS}
+            epochs.append({"steps": steps, "seconds": seconds,
+                           "ms_a_step": {k.replace("_seconds", "_ms"): v * 1e3 / steps
+                                         for k, v in seconds.items()}})
+    return epochs
+
+
 def run_stage(stage: str, device: str, overrides: Sequence[str]) -> Dict:
     """One stage in this process: fit, then test the best checkpoint. A
     failed fit raises before any test."""
@@ -139,6 +168,7 @@ def run_stage(stage: str, device: str, overrides: Sequence[str]) -> Dict:
     flags = ["--config-file", config, "--device", device]
     stats = os.path.join(log_dir, "rank_stats")
     fit = _phase([*flags, *opts], os.path.join(stats, "fit"), ranks)
+    fit["epochs"] = fit_epochs(log_dir)
     ckpt = best_ckpt(log_dir)
     print(f"{stage}: testing {ckpt}", flush=True)
     test = _phase([*flags, "--test_ckpt", ckpt, *opts], os.path.join(stats, "test"), ranks)

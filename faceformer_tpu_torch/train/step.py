@@ -1,6 +1,7 @@
 """One training step (PyTorch counterpart of the step that
 faceformer_tpu/train/trainer.py:129-155 compiles): teacher-forced forward,
-pointer cross-entropy, backward, Adam, and the NaN-loss skip. The harness
+pointer cross-entropy, backward, Adam, and the NaN-loss skip, all queued on
+the device without waiting for it. The harness
 (``train/trainer.py``) runs it once a batch and sets each parameter group's
 ``lr`` from ``lr_for_epoch`` at the start of each epoch.
 
@@ -35,9 +36,11 @@ from faceformer_tpu_torch.train.loss import summed_cross_entropy
 
 def make_optimizer(model: torch.nn.Module, trainer_cfg: TrainerConfig) -> torch.optim.Adam:
     """Adam at ``lr`` with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8
-    added outside the square root, no weight decay)."""
+    added outside the square root, no weight decay). Fused: one kernel a
+    device and dtype, which reads ``train_step``'s skip flag on the device
+    (``found_inf``, which the foreach and single-tensor versions refuse)."""
     return torch.optim.Adam(model.parameters(), lr=trainer_cfg.lr, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=0.0)
+                            eps=1e-8, weight_decay=0.0, fused=True)
 
 
 def lr_for_epoch(trainer_cfg: TrainerConfig, epoch: int) -> float:
@@ -62,10 +65,14 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.T
 
     A step whose loss is not finite is skipped (reference trainer.py:87-88):
     parameters and the optimizer's state, moments and step count, stay
-    untouched. The JAX step selects old or new state on the device; here
-    the check reads the loss on the host once per step, which waits for the
-    step's device work to finish. The loss it reads is the global one, so
-    every rank steps or skips together."""
+    untouched. As in the JAX step, which selects old or new state with
+    ``jnp.where``, the decision stays on the device: the flag
+    ``loss is not finite`` goes to the fused Adam as ``found_inf``, whose
+    kernel then leaves parameters and moments as they are and whose step
+    count is taken back by the flag. Nothing is read on the host, so the
+    call returns once the step is queued, and the caller decides when to
+    wait for its scalars. The flag comes from the global loss, so every rank
+    steps or skips together."""
     optimizer.zero_grad(set_to_none=True)
     out = model.forward_train(batch, generator=generator, precision=cfg.trainer.precision,
                               scheduled_sampling_ratio=cfg.trainer.scheduled_sampling,
@@ -80,6 +87,7 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.T
     shares = torch.stack([loss.detach(), aux["correct_tokens"].float()])
     mesh.all_reduce_(world, grads + [shares])
     replicate_grads_(model)
-    if bool(torch.isfinite(shares[0])):
-        optimizer.step()
+    optimizer.found_inf = (~torch.isfinite(shares[0])).float()
+    optimizer.step()
+    del optimizer.found_inf  # a later plain optimizer.step() steps
     return shares[0], shares[1] / (tokens + 1e-10)

@@ -8,6 +8,18 @@ checkpoints:
     the NaN skip), one step per batch, in the model's own precision;
   - batches reach the card one ahead of the step, through pinned host
     memory and non-blocking copies;
+  - nothing in a step waits for the card: the NaN skip runs on the device
+    (``train_step``), and the fit logs lag-1 as the JAX harness does (a
+    step's loss and accuracy are read after the next step is queued), so
+    the host assembles and uploads a batch while the card runs the step
+    before. Each epoch's record splits its seconds: the host's in the batch
+    iterator and upload (``train_host_batch_seconds``) and in queueing the
+    steps (``train_host_dispatch_seconds``), and the steps' span on the
+    card's stream, by CUDA events read once at the epoch's end
+    (``train_step_span_seconds``; on the CPU the host's clock). A span
+    counts the card's idle gaps while the host still queues the step: it
+    is the card's step time only where the host queues faster than the
+    card runs, and never the card's busy time (a profile reads that);
   - eval decodes with ``cfg.decode`` (``decode_grid``) and scores on the
     host, one device->host copy of the token grid per batch. The flat
     SurfaceFormer has no fused engine: ``decode.mode: fused`` decodes it
@@ -110,6 +122,52 @@ def _prefetch_to_device(batches, put):
     yield nxt
 
 
+def _scalars_to_host(*scalars: torch.Tensor):
+    """0-d tensors copied to the host behind the work queued so far,
+    without waiting for it: (the host values, an event that completes when
+    they are there, None on the CPU). A card's copy lands in pinned memory,
+    so that it is asynchronous."""
+    values = torch.stack([s.detach().float() for s in scalars])
+    if values.device.type != "cuda":
+        return values, None
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(values.device))
+    return host, ready
+
+
+class _StepClock:
+    """The summed spans of an epoch's training steps. On a card, CUDA
+    events recorded on the stream before and after each step, read once,
+    at the epoch's end, so that no step waits for them: each step's span
+    on the stream, from its first queued work to its last, gaps while the
+    host still queues it included. On the CPU, where a step runs as it is
+    called, the host's clock around the call."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.events: list = []  # CUDA events on a card, host clock readings on the CPU
+
+    def _record(self):
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            self.events.append(ev)
+        else:
+            self.events.append(time.perf_counter())
+
+    start = stop = _record
+
+    def seconds(self) -> float:
+        starts, stops = self.events[0::2], self.events[1::2]
+        if self.device.type != "cuda":
+            return float(sum(b - a for a, b in zip(starts, stops)))
+        if stops:
+            stops[-1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in zip(starts, stops)) / 1e3
+
+
 def rank_generator(seed: int, rank: int) -> torch.Generator:
     """The dropout and scheduled-sampling stream of a data rank: data rank 0
     keeps the one-rank run's (``seed + 1``), every other one seeded from the
@@ -193,28 +251,58 @@ class Harness:
         # starts the stream afresh, as the JAX harness does
         generator = rank_generator(cfg.trainer.seed, world.data_rank)
         max_epochs = max_epochs or cfg.trainer.max_epochs
+        every = cfg.trainer.log_every_n_steps
         step = state["step"]
+        pending = None  # (step, its scalars on the host, the event they are ready at)
+
+        def flush_pending():
+            # lag-1 logging (JAX trainer.py:225-263): the previous step's
+            # scalars are read after the next step is queued, so the wait
+            # for them overlaps that step's device work
+            nonlocal pending
+            if pending is not None:
+                logged, values, ready = pending
+                if ready is not None:
+                    ready.synchronize()
+                logger.log_scalars(logged, {"train_loss": float(values[0]),
+                                            "train_cls_acc": float(values[1])})
+            pending = None
+
         for epoch in range(state["epoch"], max_epochs):
             t_epoch = time.perf_counter()
             for group in optimizer.param_groups:
                 group["lr"] = lr_for_epoch(cfg.trainer, epoch)
-            batches = mesh.shard_batch(train_ds, cfg.batch_size_train, world, shuffle=True,
-                                       drop_last=True, seed=cfg.trainer.seed, epoch=epoch)
-            step_s, samples = 0.0, 0
-            for batch in _prefetch_to_device(batches, self._upload):
+            batches = iter(_prefetch_to_device(
+                mesh.shard_batch(train_ds, cfg.batch_size_train, world, shuffle=True,
+                                 drop_last=True, seed=cfg.trainer.seed, epoch=epoch),
+                self._upload))
+            clock = _StepClock(self.device)
+            batch_s = dispatch_s = 0.0
+            samples = 0
+            while True:
                 t0 = time.perf_counter()
-                # train_step reads the loss on the host (the NaN check), so
-                # the step's device work is done when it returns
+                batch = next(batches, None)  # the next batch's collate and upload
+                t1 = time.perf_counter()
+                batch_s += t1 - t0
+                if batch is None:
+                    break
+                clock.start()
                 loss, acc = train_step(model, optimizer, batch, generator, cfg, world=world)
-                step_s += time.perf_counter() - t0
+                clock.stop()
+                dispatch_s += time.perf_counter() - t1
                 samples += int(batch["label"].shape[0]) * world.data_size
                 step += 1
-                if logger is not None and step % cfg.trainer.log_every_n_steps == 0:
-                    logger.log_scalars(step, {"train_loss": float(loss),
-                                              "train_cls_acc": float(acc)})
+                flush_pending()
+                if logger is not None and step % every == 0:
+                    pending = (step, *_scalars_to_host(loss, acc))
+            flush_pending()  # the epoch's last step, before validation
             state.update(epoch=epoch + 1, step=step)
+            span_s = clock.seconds()
             train_s = time.perf_counter() - t_epoch
-            timing = {"epoch_train_seconds": train_s, "train_step_seconds": step_s,
+            timing = {"epoch_train_seconds": train_s,
+                      "train_host_batch_seconds": batch_s,
+                      "train_host_dispatch_seconds": dispatch_s,
+                      "train_step_span_seconds": span_s,
                       "train_samples_per_s": samples / train_s if train_s else 0.0}
             # checkpoint on validation epochs plus the final epoch: the
             # reference's cadence (ModelCheckpoint every_n_val_epochs=1 with
@@ -390,6 +478,10 @@ class Harness:
             return state
         tree, _ = load_checkpoint(path, map_location=self.device)
         state["model"].load_state_dict(tree["model"])
+        # a saved group's settings replace the optimizer's; the step's skip
+        # needs the fused Adam, whichever Adam wrote the file
+        for group in tree["optimizer"]["param_groups"]:
+            group.update(fused=True, foreach=None)
         state["optimizer"].load_state_dict(tree["optimizer"])
         state["epoch"] = int(tree.get("epoch", 0))
         state["step"] = int(tree.get("step", 0))

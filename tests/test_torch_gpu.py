@@ -627,6 +627,36 @@ def test_train_step_kernels_equal_plain_on_card(cuda_device, dropout):
             assert rel_err(grads_k[name], g) <= 1e-3, name
 
 
+def test_train_step_waits_for_nothing_on_card(cuda_device):
+    """train_step under torch.cuda.set_sync_debug_mode("error"), where any
+    call that waits for the card raises: a step with dropout, then a NaN
+    step, which the fused Adam skips on the card (parameters, moments and
+    step count unchanged)."""
+    cfg, model, batch = train_case(cuda_device, 0.2)
+    optimizer = make_optimizer(model, cfg.trainer)
+    gen = torch.Generator().manual_seed(5)
+    train_step(model, optimizer, batch, gen, cfg)  # Adam's state exists now
+    torch.cuda.synchronize()
+    bad = dict(batch, input=batch["input"].clone())
+    bad["input"][0, 0, 0, 0] = float("nan")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = train_step(model, optimizer, batch, gen, cfg)
+        params = {k: v.clone() for k, v in model.state_dict().items()}
+        state = {i: {k: v.clone() for k, v in slot.items()}
+                 for i, slot in enumerate(optimizer.state.values())}
+        skipped, _ = train_step(model, optimizer, bad, gen, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(loss) and not torch.isfinite(skipped)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, params[k]), k
+    for i, slot in enumerate(optimizer.state.values()):
+        for k, v in slot.items():
+            assert torch.equal(v, state[i][k]), (i, k)
+    assert {float(slot["step"]) for slot in optimizer.state.values()} == {2.0}
+
+
 # the flat model with a label budget past both kernels' whole-row reach in
 # fp32 (the decoder self-attention runs at Sq = Sk = 520: K2 and K3 tiled)
 FLAT_CFG = ModelConfig(num_points_per_line=8, num_lines=40, label_seq_length=521,

@@ -1,8 +1,8 @@
 """PyTorch port: the harness, checkpoints and command lines against the JAX
-package (CPU, fp32, tiny dims, dropout 0): fit losses and parameters,
-validate and test results and prediction JSONs under every decode engine,
-the checkpoint manager's rules, resume, and a reference Lightning
-checkpoint through both command lines."""
+package (CPU, fp32, tiny dims, dropout 0): fit losses and parameters, the
+lag-1 fit's logged losses with NaN steps, validate and test results and
+prediction JSONs under every decode engine, the checkpoint manager's rules,
+resume, and a reference Lightning checkpoint through both command lines."""
 
 import json
 import os
@@ -115,6 +115,87 @@ def test_fit_matches_jax(tiny_model_cfg, splits, tmp_path):
         close += int((np.abs(mine[name] - want) <= 1e-5).sum())
         total += want.size
     assert close > 0.9 * total
+
+
+# the lag-1 fit: a NaN step in each of two epochs (the sixth train sample
+# poisoned, two steps of four rows an epoch), logged every step and every
+# second one (then each epoch's last step alone, flushed before validation)
+LOG_EVERY = (1, 2)
+
+
+def poison_train(harness):
+    """The harness's train split with a NaN in its sixth sample's input."""
+    ds = harness.dataset("train")
+    train = [ds[i] for i in range(len(ds))]
+    train[5] = dict(train[5], input=np.array(train[5]["input"], copy=True))
+    train[5]["input"].flat[0] = np.nan
+    harness._datasets["train"] = train
+
+
+@pytest.fixture(scope="module")
+def jax_lag1_runs(tiny_model_cfg, splits, tmp_path_factory):
+    """The JAX harness's fit at each of LOG_EVERY from one initial tree,
+    its step and decode compiled once for both."""
+    runs, first = {}, None
+    for every in LOG_EVERY:
+        jh, _ = harnesses(tiny_model_cfg, splits, tmp_path_factory.mktemp(f"lag{every}"),
+                          lr=1e-3, checkpoint_period=2, log_every_n_steps=every)
+        poison_train(jh)
+        if first is None:
+            first = jh
+            tree = jax.tree.map(np.asarray, jh.init_state()["params"])
+        else:
+            jh._train_step, jh._decode_fn = first._train_step, first._decode_fn
+        jh.fit(jh.init_state())
+        runs[every] = records(jh.log_dir)
+    return tree, runs
+
+
+@pytest.mark.parametrize("every", LOG_EVERY)
+def test_lag1_logged_pairs_with_nan_steps_match_jax(tiny_model_cfg, splits, tmp_path,
+                                                    jax_lag1_runs, every):
+    tree, runs = jax_lag1_runs
+    _, ph = harnesses(tiny_model_cfg, splits, tmp_path, lr=1e-3, checkpoint_period=2,
+                      log_every_n_steps=every)
+    poison_train(ph)
+    state = ph.init_state()
+    params_from_jax(state["model"], tree)
+    ph.fit(state)
+    got = [(r["step"], r["train_loss"]) for r in records(ph.log_dir) if "train_loss" in r]
+    want = [(r["step"], r["train_loss"]) for r in runs[every] if "train_loss" in r]
+    assert [s for s, _ in got] == [s for s, _ in want] == list(range(every, 5, every))
+    assert [x is None for _, x in got] == [x is None for _, x in want]  # NaN logs as null
+    if every == 1:
+        assert sum(x is None for _, x in got) == 2  # a NaN step an epoch
+    np.testing.assert_allclose([x for _, x in got if x is not None],
+                               [x for _, x in want if x is not None], atol=1e-5)
+    # each epoch's seconds split: the host's in the batches and in queueing
+    # the steps, the steps' span (the host's clock on the CPU)
+    timing = [r for r in records(ph.log_dir) if "epoch_train_seconds" in r]
+    assert len(timing) == 2
+    for r in timing:
+        for key in ("train_host_batch_seconds", "train_host_dispatch_seconds",
+                    "train_step_span_seconds"):
+            assert 0.0 < r[key] <= r["epoch_train_seconds"], key
+
+
+@pytest.mark.parametrize("n", [0, 1, 5])
+def test_prefetch_uploads_one_batch_ahead(n):
+    """The fit's lookahead-1 upload hands out every batch in order, and
+    uploads the next batch before it hands out the current one."""
+    from faceformer_tpu_torch.train.trainer import _prefetch_to_device
+
+    uploaded = []
+
+    def put(b):
+        uploaded.append(b)
+        return b * 10
+
+    got = []
+    for item in _prefetch_to_device(range(n), put):
+        got.append(item)
+        assert len(uploaded) == min(len(got) + 1, n)
+    assert got == [10 * b for b in range(n)] and uploaded == list(range(n))
 
 
 @pytest.mark.parametrize("mode", ["reference", "causal_cache", "fused"])

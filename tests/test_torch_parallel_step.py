@@ -74,15 +74,25 @@ def test_global_token_mean_gradient_with_uneven_ranks(ranks, tiny_model_cfg):
 
 def test_nan_skip_is_global(ranks):
     """A NaN on rank 1's rows: both ranks skip the step (parameters and Adam
-    untouched, equal on both), then both take the next one alike."""
+    untouched, equal on both: step count 0 and every moment 0), then both
+    take the next one alike, to finite parameters."""
     r0, r1 = (load_rank(ranks["out"], "nan", r) for r in (0, 1))
     assert not np.isfinite(r0["__skipped_loss"]) and not np.isfinite(r1["__skipped_loss"])
     assert int(r0["__adam_steps_after_skip"]) == int(r1["__adam_steps_after_skip"]) == 0
+    for r in (r0, r1):
+        # the fused Adam holds a state for every parameter after the skip;
+        # NaN != 0, so a NaN moment fails here
+        assert int(r["__adam_slots_after_skip"]) == int(r["__parameters"]) > 0
+        moments = [k for k in r if k.startswith(("exp_avg/", "exp_avg_sq/"))]
+        assert len(moments) == 2 * int(r["__parameters"])
+        for k in moments:
+            assert not np.any(r[k] != 0), k
     moved = 0
     for name, init in leaves(ranks["tree"]):
         for r in (r0, r1):
             np.testing.assert_array_equal(r[f"skipped/{name}"], init)
         np.testing.assert_array_equal(r0[f"stepped/{name}"], r1[f"stepped/{name}"])
+        assert np.all(np.isfinite(r0[f"stepped/{name}"])), name
         moved += int(not np.array_equal(r0[f"stepped/{name}"], init))
     assert moved > 0 and np.isfinite(r0["__stepped_loss"])
 

@@ -1,5 +1,6 @@
 """PyTorch port: ``train_step`` against the JAX package (CPU, fp32, tiny
-dims): three Adam steps against ``optax.adam``, the NaN-loss skip, and the
+dims): three Adam steps against ``optax.adam``, the NaN-loss skip (alone,
+and between two good steps against the JAX step's on-device skip), and the
 per-epoch learning-rate schedule."""
 
 import copy
@@ -11,8 +12,15 @@ import optax
 import pytest
 import torch
 
+from faceformer_tpu.config import Config, TrainerConfig, config_to_dict
+from faceformer_tpu.data.batching import collate
+from faceformer_tpu.data.dataset import ABCDatasetParallel as JaxDataset
+from faceformer_tpu.geometry.fixtures import random_sample
 from faceformer_tpu.models.parallel import SurfaceFormerParallel as JaxParallel
+from faceformer_tpu.parallel.mesh import shard_batch as jax_shard_batch
 from faceformer_tpu.train.loss import pointer_cross_entropy as jax_pointer_cross_entropy
+from faceformer_tpu.train.trainer import Harness as JaxHarness
+from faceformer_tpu.train.trainer import _device_batch
 from faceformer_tpu_torch.config import config_from_dict
 from faceformer_tpu_torch.params import params_to_numpy
 from faceformer_tpu_torch.train.step import lr_for_epoch, make_optimizer, train_step
@@ -27,14 +35,35 @@ from torch_port_helpers import (  # noqa: F401
 )
 
 
+LR = 1e-3
+
+
+def poisoned(item):
+    """A packed sample with a NaN in its first input coordinate."""
+    bad = dict(item, input=np.array(item["input"], copy=True))
+    bad["input"].flat[0] = np.nan
+    return bad
+
+
+def moment_tree(model, optimizer, key):
+    """Adam's ``key`` state of every parameter in the JAX parameter layout."""
+    clone = copy.deepcopy(model)
+    with torch.no_grad():
+        for p_clone, p in zip(clone.parameters(), model.parameters()):
+            p_clone.copy_(optimizer.state[p][key])
+    return dict(leaves(params_to_numpy(clone)))
+
+
+def step_counts(optimizer):
+    return {float(slot["step"]) for slot in optimizer.state.values()}
+
+
 @pytest.fixture(scope="module")
 def batch(tiny_model_cfg):
     return fixture_batch(tiny_model_cfg)
 
 
 def train_cfg(tiny_model_cfg, **trainer):
-    from faceformer_tpu.config import config_to_dict
-
     return config_from_dict({"model": config_to_dict(tiny_model_cfg),
                              "trainer": {"precision": "fp32", **trainer}})
 
@@ -108,8 +137,65 @@ def test_nonfinite_loss_leaves_parameters_and_adam_state_unchanged(tiny_model_cf
     assert not torch.equal(model.project.weight, params["project.weight"])
 
 
+def test_nan_batch_between_good_ones_is_skipped_as_jax_skips_it(tiny_model_cfg):
+    """A good batch, a NaN one, a good one, through the JAX harness's
+    compiled step (its on-device ``jnp.where`` skip) and ``train_step`` (the
+    fused Adam's ``found_inf``) from the same parameters: losses, parameters,
+    Adam's moments and step count after each step; the NaN step leaves the
+    port's state as it was, bit for bit."""
+    rng = np.random.default_rng(31)
+    ds = JaxDataset.from_samples([random_sample(rng) for _ in range(4)], tiny_model_cfg)
+    good_a, good_b = collate([ds[0], ds[1]]), collate([ds[2], ds[3]])
+    bad = collate([poisoned(ds[0]), ds[1]])
+
+    cfg = Config(model_class="SurfaceFormer_Parallel", model=tiny_model_cfg,
+                 trainer=TrainerConfig(lr=LR, precision="fp32", num_devices=1))
+    jh = JaxHarness(cfg)
+    step_fn = jh.train_step()
+    tree = jax_params(tiny_model_cfg, seed=5)
+    params = jax.tree.map(jnp.asarray, tree)
+    opt_state = jh.optimizer.init(params)
+    key = jax.random.key(0)
+
+    pcfg = config_from_dict(config_to_dict(cfg))
+    model = port_model(tiny_model_cfg, tree)
+    optimizer = make_optimizer(model, pcfg.trainer)
+
+    for i, batch in enumerate((good_a, bad, good_b)):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        moments = {k: moment_tree(model, optimizer, k) for k in ("exp_avg", "exp_avg_sq")
+                   } if optimizer.state else None
+        params, opt_state, loss_j, _ = step_fn(
+            params, opt_state, jax_shard_batch(_device_batch(batch), jh.mesh), key)
+        loss, _ = train_step(model, optimizer, torch_batch(batch), None, pcfg)
+        assert np.isfinite(float(loss)) == np.isfinite(float(loss_j)) == (i != 1)
+        if i != 1:
+            np.testing.assert_allclose(float(loss), float(loss_j), atol=1e-5)
+        adam = opt_state[0]
+        # the step count: 1, kept at 1 by the skip, then 2, in both
+        assert step_counts(optimizer) == {float(adam.count)} == {1.0 if i < 2 else 2.0}
+        if i == 1:  # the skip leaves everything as it was, bit for bit
+            for k, v in model.state_dict().items():
+                assert torch.equal(v, before[k]), k
+            for k in ("exp_avg", "exp_avg_sq"):
+                now = moment_tree(model, optimizer, k)
+                for name, value in moments[k].items():
+                    np.testing.assert_array_equal(now[name], value, err_msg=(k, name))
+        # the two frameworks' gradients differ by summation order (~4e-7),
+        # and Adam's normalised update turns that into up to ~lr where a
+        # gradient is as small: parameters within 10 lr, as above
+        ours = dict(leaves(params_to_numpy(model)))
+        for name, want in leaves(jax.tree.map(np.asarray, params)):
+            np.testing.assert_allclose(ours[name], want, atol=10 * LR, err_msg=name)
+        # the moments: a tenth of the gradient, and a thousandth of its square
+        for k, want_tree, atol in (("exp_avg", adam.mu, 1e-6), ("exp_avg_sq", adam.nu, 1e-9)):
+            got = moment_tree(model, optimizer, k)
+            for name, want in leaves(jax.tree.map(np.asarray, want_tree)):
+                np.testing.assert_allclose(got[name], want, rtol=1e-3, atol=atol,
+                                           err_msg=(k, name))
+
+
 def test_lr_schedule_matches_jax_harness(tiny_model_cfg):
-    from faceformer_tpu.config import Config, TrainerConfig
     from faceformer_tpu.train.trainer import Harness
 
     harness = Harness(Config(model=tiny_model_cfg, trainer=TrainerConfig(lr=3e-4, lr_step=5)))

@@ -174,6 +174,12 @@ def test_stage_tests_the_best_checkpoint(demo_run, stage, version):
     per_epoch = len(read_lines(cwd / "data" / "synthetic-flat-big" / "train.txt")) // 8
     assert steps == list(range(1, 2 * per_epoch + 1))
     assert sum("valid_precision" in r for r in records) == 2
+    # the STAGE line's epochs: each epoch's seconds split, as ms a step too
+    epochs = record["fit"]["epochs"]
+    assert [e["steps"] for e in epochs] == [per_epoch, per_epoch]
+    for e in epochs:
+        assert set(e["seconds"]) == set(train_demos.EPOCH_SECONDS)
+        assert all(0.0 < v <= e["seconds"]["epoch_train_seconds"] for v in e["seconds"].values())
     assert record["version"] == version and record["seed"] == int(stage[-1])
     assert record["fit"]["launches"] == {} and record["test"]["launches"] == {}
 

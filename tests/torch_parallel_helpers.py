@@ -151,7 +151,17 @@ def task_nan(job) -> None:
     loss, _ = train_step(model, opt, bad, None, cfg, world=world)
     payload = {f"skipped/{k}": v for k, v in flat(params_to_numpy(model)).items()}
     payload["__skipped_loss"] = loss.numpy()
-    payload["__adam_steps_after_skip"] = np.asarray(len(opt.state))
+    # Adam's state after the skip: the fused Adam makes it on the skipped
+    # step too, as optax's init does, and the skip must leave it at its
+    # start: step 0, every moment 0, for every parameter
+    payload["__adam_steps_after_skip"] = np.asarray(
+        max((float(slot["step"]) for slot in opt.state.values()), default=0.0))
+    payload["__adam_slots_after_skip"] = np.asarray(len(opt.state))
+    payload["__parameters"] = np.asarray(len(list(model.parameters())))
+    for name, p in model.named_parameters():
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in opt.state.get(p, {}):
+                payload[f"{key}/{name}"] = opt.state[p][key].numpy().copy()
     loss, _ = train_step(model, opt, batch, None, cfg, world=world)
     payload.update({f"stepped/{k}": v for k, v in flat(params_to_numpy(model)).items()})
     payload["__stepped_loss"] = loss.numpy()
